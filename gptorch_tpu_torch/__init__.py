@@ -1,0 +1,42 @@
+"""gptorch_tpu_torch: the PyTorch/CUDA port of gptorch_tpu.
+
+Module names follow the JAX package, so each module's counterpart is easy
+to find.  Entry points run on the CUDA card unless the caller passes
+``device="cpu"``; every TPU kernel of the JAX package becomes a
+hand-written Hopper kernel under ``csrc/`` with a plain PyTorch twin.
+"""
+
+from . import (
+    bijectors,
+    convert,
+    functions,
+    kernels,
+    likelihoods,
+    mean_functions,
+    models,
+    ops,
+    priors,
+    settings,
+)
+from .module import Module, get_trainable, pack_vector, set_trainable, unpack_vector
+from .param import Param, positive_param
+
+__all__ = [
+    "bijectors",
+    "convert",
+    "functions",
+    "kernels",
+    "likelihoods",
+    "mean_functions",
+    "models",
+    "ops",
+    "priors",
+    "settings",
+    "Module",
+    "Param",
+    "get_trainable",
+    "pack_vector",
+    "positive_param",
+    "set_trainable",
+    "unpack_vector",
+]

@@ -1,0 +1,118 @@
+"""Exact Gaussian-process regression.
+
+Counterpart of ``gptorch_tpu/models/gpr.py`` -- GPML Algorithm 2.1:
+
+    L = chol(K(X,X) + σ²I)
+    α = L⁻¹ (y - m(X))
+    log p(y) = -½ Σα² - dy·Σ log diag L - ½·dy·n·log 2π
+
+and the posterior
+
+    A = L⁻¹ K(X, X*)
+    mean = Aᵀ(L⁻¹(y-m(X))) + m(X*)
+    var  = Kdiag(X*) - ΣA²   (diag)  |  K(X*,X*) - AᵀA  (full)
+
+Every loss takes the generic path (autograd through :func:`cholesky`); the
+JAX package's routing to its fused closed-form-VJP NLML (``_fast_eligible``)
+is not ported yet, so the ``fast*`` and iterative-solver arguments are kept
+only for signature parity.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..functions import add_diag, cholesky, lt_log_determinant, trtrs
+from ..kernels import Rbf
+from .base import GPModel
+
+
+class GPR(GPModel):
+    """Exact GP regression with a Gaussian likelihood.
+
+    :param device: see :class:`~gptorch_tpu_torch.models.base.GPModel`.
+    """
+
+    def __init__(
+        self,
+        x,
+        y,
+        kernel,
+        mean_function=None,
+        likelihood=None,
+        name="gpr",
+        fast=None,
+        fast_block: int = 1024,
+        fast_jitter: float = 0.0,
+        fast_rel_jitter=None,
+        fast_precision: str = "highest",
+        objective: str = "nlml",
+        solver: str = "dense",
+        probes: int = 16,
+        max_cg_iters: int = 256,
+        precond_rank: int = 64,
+        cg_tol: float = 1e-6,
+        mvm_slab: int = 2048,
+        probe_seed: int = 0,
+        device=None,
+    ):
+        if objective != "nlml":
+            raise NotImplementedError("objective='loo' is not ported yet")
+        if solver == "iterative":
+            raise NotImplementedError("solver='iterative' is not ported yet")
+        if solver != "dense":
+            raise ValueError("solver must be 'dense' or 'iterative'")
+        if fast_precision not in ("highest", "default"):
+            raise ValueError("fast_precision must be 'highest' or 'default'")
+        super().__init__(x, y, kernel, likelihood, mean_function, name, device=device)
+        self.fast = fast if fast is None else bool(fast)
+        self.fast_block = int(fast_block)
+        self.fast_jitter = float(fast_jitter)
+        if fast_rel_jitter is None:
+            fast_rel_jitter = 1e-6 if self.X.dtype == torch.float32 else 0.0
+        self.fast_rel_jitter = float(fast_rel_jitter)
+        self.fast_precision = fast_precision
+        self.objective = objective
+        self.solver = solver
+
+    def log_likelihood(self, x=None, y=None):
+        x = x if x is not None else self.X
+        y = y if y is not None else self.Y
+        num_input, dim_output = y.shape
+        L = cholesky(self._compute_kyy(x=x))
+        alpha = trtrs(y - self.mean_function(x), L)
+        const = -0.5 * dim_output * num_input * math.log(2.0 * math.pi)
+        return -0.5 * torch.sum(torch.square(alpha)) - dim_output * lt_log_determinant(L) + const
+
+    def _compute_kyy(self, x=None):
+        """K(X,X) + σ²I.  For an Rbf kernel the noise rides in the Gram's
+        ``diag`` argument, which the card's kernel adds as it writes."""
+        x = x if x is not None else self.X
+        noise = self.likelihood.variance.value.reshape(()).to(x.dtype)
+        if type(self.kernel) is Rbf:
+            return self.kernel.K(x, diag=noise)
+        return add_diag(self.kernel.K(x), noise)
+
+    def posterior(self):
+        """Cached predictive posterior: factorizes Kyy once; each later
+        predict costs one cross-Gram and one triangular solve (see
+        :mod:`gptorch_tpu_torch.models.posterior`)."""
+        from .posterior import gpr_posterior
+
+        return gpr_posterior(self)
+
+    def _predict(self, x_new, diag=True):
+        """Posterior p(f* | y) at x_new."""
+        x = self.X
+        k_ys = self.kernel.K(x, x_new)
+        L = cholesky(self._compute_kyy(x=x))
+        A = trtrs(k_ys, L)
+        V = trtrs(self.Y - self.mean_function(x), L)
+        mean_f = A.T @ V + self.mean_function(x_new)
+        if diag:
+            var_f = (self.kernel.Kdiag(x_new) - torch.sum(A * A, dim=0))[:, None].expand(mean_f.shape)
+        else:
+            var_f = self.kernel.K(x_new) - A.T @ A
+        return mean_f, var_f

@@ -1,0 +1,84 @@
+"""The module base and the flat named views of its parameters.
+
+Counterpart of ``gptorch_tpu/module.py``.  :class:`Module` is an
+``nn.Module``; its :class:`~gptorch_tpu_torch.param.Param` children are
+found by :meth:`Module.named_params` under the same dotted paths the JAX
+package uses (``"kernel.variance"``, ``"likelihood.variance"``, ...), so
+:func:`get_trainable` dictionaries of the two packages share their keys.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from . import settings
+from .param import Param
+
+
+class Module(nn.Module):
+    """Base class of kernels, likelihoods, mean functions and models."""
+
+    def named_params(self) -> Iterator[Tuple[str, Param]]:
+        """Yield (dotted_path, Param) pairs in registration order.  A Param
+        shared by two children is yielded under both paths, as in the JAX
+        package."""
+        for path, mod in self.named_modules(remove_duplicate=False):
+            if isinstance(mod, Param):
+                yield path, mod
+
+    def log_prior(self) -> torch.Tensor:
+        """Sum of prior log-probs over the Params that carry a prior,
+        evaluated on the constrained value with no Jacobian term (the
+        reference gptorch's convention)."""
+        first = next(self.parameters(), None)
+        device = first.device if first is not None else None
+        total = torch.zeros((), dtype=settings.default_float(), device=device)
+        for _, p in self.named_params():
+            if p.prior is not None:
+                total = total + torch.sum(p.prior.log_prob(p.value))
+        return total
+
+
+def get_trainable(module: Module) -> Dict[str, torch.Tensor]:
+    """The raw (unconstrained) ``nn.Parameter`` of every trainable Param,
+    keyed by dotted path."""
+    return {path: p.raw for path, p in module.named_params() if p.trainable}
+
+
+def set_trainable(module: Module, values: Dict[str, torch.Tensor]) -> Module:
+    """In-place inverse of :func:`get_trainable`: overwrite the raw value of
+    each trainable Param whose path is in ``values``.  Returns ``module``."""
+    for path, p in module.named_params():
+        if p.trainable and path in values:
+            p.set_raw(values[path])
+    return module
+
+
+def pack_vector(values: Dict[str, torch.Tensor]) -> np.ndarray:
+    """Flatten a trainable dict to one float64 numpy vector, sorted by key."""
+    if not values:
+        return np.zeros((0,), dtype=np.float64)
+    return np.concatenate(
+        [
+            np.asarray(torch.as_tensor(values[k]).detach().cpu(), dtype=np.float64).ravel()
+            for k in sorted(values)
+        ]
+    )
+
+
+def unpack_vector(vector: np.ndarray, like: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`pack_vector`: tensors shaped, typed and placed like
+    the entries of ``like``."""
+    out = {}
+    idx = 0
+    for k in sorted(like):
+        template = like[k]
+        size = template.numel()
+        chunk = np.asarray(vector[idx : idx + size]).reshape(tuple(template.shape))
+        out[k] = torch.as_tensor(chunk, dtype=template.dtype, device=template.device)
+        idx += size
+    return out

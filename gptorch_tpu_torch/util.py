@@ -1,0 +1,53 @@
+"""Utilities: tensor coercion and pairwise squared distances.
+
+Counterpart of ``gptorch_tpu/util.py`` (``as_array``, ``squared_distance``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import settings
+
+
+def as_array(x, dtype=None, device=None) -> torch.Tensor:
+    """Convert numpy / scalar / list / tensor input to a tensor in the
+    library default float dtype.
+
+    A Python scalar becomes shape ``(1,)``, not ``()`` -- the JAX package's
+    rule, which every scalar parameter's shape follows.
+    """
+    if dtype is None:
+        dtype = settings.default_float()
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=dtype, device=device)
+    if isinstance(x, np.ndarray):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+    if isinstance(x, (float, int)):
+        return torch.tensor([x], dtype=dtype, device=device)
+    if isinstance(x, (list, tuple)):
+        return torch.tensor(x, dtype=dtype, device=device)
+    raise TypeError(f"Unsupported type {type(x)}")
+
+
+def squared_distance(x1, x2=None):
+    """Pairwise squared Euclidean distances: out[i, j] = ||x1[i] - x2[j]||².
+
+    Built as ||a||² + ||b||² − 2 a·b, like the JAX package, with its
+    gradient-safe clamp ``r2 - (r2.clamp(max=0)).detach()``: it zeroes the
+    small negatives that cancellation leaves without changing first or
+    second derivatives (the subtracted term is a constant).
+
+    In the one-argument (self) case the diagonal is set to exactly 0: the
+    identity leaves ±O(eps·||x||²) there, which kernels with a √r² kink
+    (Exp/Matern12) would amplify to √eps.
+    """
+    x1s = torch.sum(x1 * x1, dim=-1, keepdim=True)
+    if x2 is None:
+        r2 = x1s + x1s.transpose(-1, -2) - 2.0 * (x1 @ x1.transpose(-1, -2))
+        r2.diagonal(dim1=-2, dim2=-1).zero_()
+    else:
+        x2s = torch.sum(x2 * x2, dim=-1, keepdim=True)
+        r2 = x1s + x2s.transpose(-1, -2) - 2.0 * (x1 @ x2.transpose(-1, -2))
+    return r2 - r2.clamp(max=0.0).detach()
