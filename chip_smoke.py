@@ -3,24 +3,37 @@
 
     python3 chip_smoke.py
 
-1. Builds every hand-written kernel from the sources in the checkout.
-2. Kernel phase: each kernel against its plain PyTorch twin on the card, at
-   the shapes the serving path gives it, in float32 and float64, with its
-   time (CUDA events, warm), the plain version's time and the least time the
-   card could take (bytes over 3.35 TB/s or operations over the peak rate,
-   whichever is larger).
-3. Serving phase: the port's exact-GP serving path at the flagship width,
-   n = 32768, d = 8, Rbf-ARD, Gaussian(0.1), fixed jitter, float32:
+1. Builds every hand-written kernel from the sources in the checkout, one
+   nvcc per source, all started together.
+2. Kernel phases: each kernel against its plain PyTorch twin on the card,
+   with its time (CUDA events, warm), the plain version's time and the least
+   time the card could take (bytes over 3.35 TB/s or operations over the
+   peak rate, whichever is larger).
+   - K1 ``rbf_gram``: the serving and training shapes in float32 and
+     float64, and its backward against autograd through the plain twin.
+   - K2 ``radial_contractions``: the five radial kinds in float32 and
+     float64 at n = 4096, and rbf in float32 at the training shape
+     n = 32768.
+3. Serving phase (main path 1): the exact-GP serving path at the flagship
+   width, n = 32768, d = 8, Rbf-ARD, Gaussian(0.1), fixed jitter, float32:
    GPR -> posterior() -> for_serving() -> 8 batches of 256 queries through
-   predict_f and mean_only.  Kernel launch counters are zeroed just before
-   and read just after; every kernel of the path must have launched.
-   Checks: finite outputs, serving vs the triangular-solve posterior, and a
-   float64 rerun at n = 4096 where the card's route and the CPU's plain
-   route agree to 1e-8.
+   predict_f and mean_only.  Checks: finite outputs, serving vs the
+   triangular-solve posterior, and a float64 rerun at n = 4096 where the
+   card's route and the CPU's plain route agree to 1e-8.
+4. Training phase (main path 2): bench.py's headline leg, n = 32768, d = 8,
+   Rbf-ARD, Gaussian(0.1), fast=True, fast_block=1024, fast_jitter=1e-3,
+   float32, through ``model.fit_scan("Adam", max_iter=4,
+   learning_rate=1e-4)``: one warm call, then one timed call.  Stage times
+   of one value-and-grad.  Checks: finite, decreasing losses; NLML and
+   gradient in float32 against the same computation in float64 at
+   n = 32768; and at n = 4096 in float64 the card's route against the CPU's
+   on the fused radial, generic and kernel-general paths.
 
-Any failed check exits non-zero.  Without a CUDA card it exits 2 and prints
-no result.  Lines starting with "#" report each measurement; the line
-before the last holds the per-kernel numbers as JSON; the last line is
+Before each main path runs, every kernel's launch counter is set to 0; it is
+read just after, and each kernel of the path must have launched.  Any failed
+check exits non-zero.  Without a CUDA card it exits 2 and prints no result.
+Lines starting with "#" report each measurement; the line before the last
+holds the per-kernel numbers as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -28,6 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -44,6 +58,23 @@ TOL = {"float32": 2e-5, "float64": 1e-12}  # kernel vs plain, absolute, per unit
 # ~1.2e-3; the bound leaves a factor 4.
 SERVING_TOL = 5e-3
 F64_REL_TOL = 1e-8
+# The training leg of bench.py:56-121.
+TRAIN_NB, TRAIN_JITTER, TRAIN_LR, TRAIN_STEPS = 1024, 1e-3, 1e-4, 4
+KINDS = ("rbf", "matern12", "matern32", "matern52", "rq")
+# K2 vs its plain twin, relative to the sum of absolute terms of each output
+# (contract.contraction_scales).  The kernel rounds each term (and W =
+# dy·K⁻¹ − AAᵀ) once and sums a row's n terms in 32 lanes of n/32 sequential
+# adds, the twin sums in cuBLAS's order: for rounding errors that behave as
+# random, about √(n/32)·u of the scale (Higham, Accuracy and Stability of
+# Numerical Algorithms, §4.2) -- 2e-6 in float32 at n = 32768, 3.5e-15 in
+# float64.  float32 keeps a factor of ten.  In float64 the twin's own r² by
+# the norm identity (error up to u·(|x̃ᵢ|² + |x̃ⱼ|²)), which matern12's
+# E = G/r amplifies at the closest pair, sets the scale: 1e-10.  At n = 4096
+# the float32 kernel is held against the twin in float64 on the same inputs,
+# so the twin's float32 r² (the same amplification, at u = 6e-8) is not
+# charged to the kernel.
+CONTRACT_TOL = {"float32": 2e-5, "float64": 1e-10}
+F32_UNIT_ROUNDOFF = 2.0 ** -24
 
 
 class CheckFailed(Exception):
@@ -78,17 +109,48 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def gram_bound_ms(n1, n2, d, sym, dtype_name, itemsize):
+def bound_ms(bytes_moved, ops, dtype):
+    """The larger of the bytes over the memory rate and the operations over
+    the peak rate (``dtype`` names the type), in ms, and which of the two
+    it is."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def gram_bound_ms(n1, n2, d, sym, dtype, itemsize):
     """Least time for the radial Gram: each input read once, the output
     written once; 3d + 3 operations per output (d differences, d fused
     multiply-adds counted as two, the scale, the exp, the variance)."""
     bytes_moved = ((n1 if sym else n1 + n2) * d + 2 + n1 * n2) * itemsize
-    ops = n1 * n2 * (3 * d + 3)
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype_name]
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return bound_ms(bytes_moved, n1 * n2 * (3 * d + 3), dtype)
 
 
-def kernel_phase(torch, gram):
+def contract_bound_ms(n, d, dy, dtype, itemsize):
+    """Least time for the rbf backward contraction: K⁻¹, A, x̃ and the two
+    scalars read once, rowsum, MX and the two sums written once;
+    5d + 2dy + 8 operations per (i, j): r² (d differences, d fused
+    multiply-adds), W (a scale, dy fused multiply-adds), G (scale, exp,
+    variance), the svar fused multiply-add, W·E, the row sum, and d fused
+    multiply-adds into MX, a fused multiply-add counted as two."""
+    bytes_moved = (n * n + n * dy + n * d + 2 + n + n * d + 2) * itemsize
+    return bound_ms(bytes_moved, n * n * (5 * d + 2 * dy + 8), dtype)
+
+
+@contextlib.contextmanager
+def default_dtype(torch, dtype):
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    try:
+        yield
+    finally:
+        torch.set_default_dtype(old)
+
+
+def dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+def gram_phase(torch, gram):
     cases = [
         ("sym+diag", N, N, True),
         ("cross", N, Q, False),
@@ -97,7 +159,7 @@ def kernel_phase(torch, gram):
     ]
     rows = []
     for dtype in (torch.float32, torch.float64):
-        name = str(dtype).replace("torch.", "")
+        name = dtype_name(dtype)
         gen = torch.Generator(device="cuda").manual_seed(1234)
         for label, n1, n2, sym in cases:
             ell = torch.rand(D, generator=gen, device="cuda", dtype=dtype) + 0.5
@@ -127,22 +189,123 @@ def kernel_phase(torch, gram):
                   f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})", flush=True)
             check(err <= tol, f"rbf_gram {label} {name} ({n1},{n2}) error {err} > {tol}")
             rows.append(row)
+    rows.append(gram_backward_check(torch, gram))
     return rows
 
 
-@contextlib.contextmanager
-def default_dtype(torch, dtype):
-    old = torch.get_default_dtype()
-    torch.set_default_dtype(dtype)
-    try:
-        yield
-    finally:
-        torch.set_default_dtype(old)
+def gram_backward_check(torch, gram):
+    """K1's backward (torch ops on the kernel's output) against autograd
+    through the plain twin, float64, symmetric with noise and cross, at the
+    n = 4096 card-vs-CPU shape of the generic path."""
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    worst = 0.0
+    for sym in (True, False):
+        leaves = [
+            torch.randn(4096, D, generator=gen, device="cuda", dtype=torch.float64),
+            None if sym else torch.randn(Q, D, generator=gen, device="cuda", dtype=torch.float64),
+            torch.tensor(1.3, device="cuda", dtype=torch.float64),
+            torch.tensor(0.1, device="cuda", dtype=torch.float64) if sym else None,
+        ]
+        cot = None
+        grads = []
+        for fn in (lambda a, b, v, d: gram.rbf_gram(a, b, var=v, diag=d), gram.rbf_gram_plain):
+            inputs = [None if t is None else t.clone().requires_grad_() for t in leaves]
+            out = fn(*inputs)
+            if cot is None:
+                cot = torch.randn(out.shape, generator=gen, device="cuda", dtype=torch.float64)
+            grads.append(torch.autograd.grad(out, [t for t in inputs if t is not None], cot))
+        for a, b in zip(*grads):
+            worst = max(worst, float((a - b).abs().max() / b.abs().max().clamp_min(1e-300)))
+    print(f"# kernel rbf_gram backward f64 (4096, 4096)+diag and (4096, {Q}): max rel "
+          f"|kernel-autograd of plain| = {worst:.3e} (tol {F64_REL_TOL})", flush=True)
+    check(worst <= F64_REL_TOL, f"rbf_gram backward vs plain autograd {worst} > {F64_REL_TOL}")
+    return {"case": "backward", "dtype": "float64", "max_rel_err": worst, "tol": F64_REL_TOL}
+
+
+def contraction_inputs(torch, n, d, dy, dtype, seed):
+    """K⁻¹ (symmetric), A, x̃, log σ² and log α on the card.  Two rows of x̃
+    are one point, so matern12's E mask is hit off the diagonal; its
+    coordinates are multiples of 1/4, which keeps the plain twin's norm
+    identity exact for the pair (r² = ±eps there would make E = G/r huge)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ell = torch.rand(d, generator=gen, device="cuda", dtype=dtype) + 0.5
+    xs = torch.randn(n, d, generator=gen, device="cuda", dtype=dtype) / ell
+    xs[n // 2] = xs[n // 3] = torch.arange(d, device="cuda", dtype=dtype) % 5 * 0.25 - 0.5
+    M = torch.randn(n, n, generator=gen, device="cuda", dtype=dtype)
+    Kinv = M + M.mT
+    del M
+    A = torch.randn(n, dy, generator=gen, device="cuda", dtype=dtype)
+    log_var = torch.tensor(0.2, device="cuda", dtype=dtype)
+    log_extra = torch.tensor([-0.5], device="cuda", dtype=dtype)
+    return Kinv, A, xs.contiguous(), log_var, log_extra
+
+
+def contraction_error(torch, contract, got, inputs, dy, kind, ref_dtype):
+    """Largest |kernel − twin| over the outputs, relative to each output's
+    sum of absolute terms, with the twin run in ``ref_dtype``; and the
+    largest absolute difference."""
+    ref = [t.to(ref_dtype) for t in inputs]
+    want = contract.radial_contractions_plain(*ref[:4], dy, kind, ref[4])
+    scales = contract.contraction_scales(*ref[:4], dy, kind, ref[4])
+    rel = absolute = 0.0
+    for a, b, s in zip(got, want, scales):
+        err = (a.to(ref_dtype) - b).abs()
+        rel = max(rel, float((err / s.clamp_min(1e-300)).max()))
+        absolute = max(absolute, float(err.max()))
+    return rel, absolute
+
+
+def contraction_phase(torch, contract):
+    rows = []
+    n, dy = 4096, 1
+    for dtype in (torch.float32, torch.float64):
+        name = dtype_name(dtype)
+        inputs = contraction_inputs(torch, n, D, dy, dtype, seed=7)
+        for kind in KINDS:
+            with torch.no_grad():
+                got = contract.radial_contractions(*inputs[:4], dy, kind, inputs[4])
+                torch.cuda.synchronize()
+                rel, absolute = contraction_error(torch, contract, got, inputs, dy, kind, torch.float64)
+                ms = time_ms(lambda: contract.radial_contractions(*inputs[:4], dy, kind, inputs[4]), 20)
+            tol = CONTRACT_TOL[name]
+            print(f"# kernel radial_contractions {kind:8s} {name} n={n} d={D} dy={dy}: "
+                  f"max |kernel-plain|/scale = {rel:.3e} (tol {tol:.0e}), max abs {absolute:.3e}, "
+                  f"kernel {ms:.4f} ms", flush=True)
+            check(rel <= tol, f"radial_contractions {kind} {name} n={n}: {rel} > {tol}")
+            rows.append({"case": kind, "dtype": name, "n": n, "max_rel_err": rel,
+                         "max_abs_err": absolute, "tol": tol, "ms": ms})
+        del inputs
+        torch.cuda.empty_cache()
+
+    # The training path's shape: rbf, float32, n = 32768, d = 8, dy = 1.
+    # The twin runs in float32 here (in float64 it would not fit beside its
+    # n² temporaries); rbf has no 1/r map, so its float32 r² is harmless.
+    inputs = contraction_inputs(torch, N, D, dy, torch.float32, seed=8)
+    with torch.no_grad():
+        got = contract.radial_contractions(*inputs[:4], dy, "rbf")
+        torch.cuda.synchronize()
+        rel, absolute = contraction_error(torch, contract, got, inputs, dy, "rbf", torch.float32)
+        del got
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: contract.radial_contractions(*inputs[:4], dy, "rbf"), 10)
+        plain_ms = time_ms(lambda: contract.radial_contractions_plain(*inputs[:4], dy, "rbf"), 2)
+    bound, bound_by = contract_bound_ms(N, D, dy, "float32", 4)
+    tol = CONTRACT_TOL["float32"]
+    print(f"# kernel radial_contractions rbf float32 n={N} d={D} dy={dy}: max |kernel-plain|/scale "
+          f"= {rel:.3e} (tol {tol:.0e}), max abs {absolute:.3e}, kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})", flush=True)
+    check(rel <= tol, f"radial_contractions rbf float32 n={N}: {rel} > {tol}")
+    rows.insert(0, {"case": "rbf", "dtype": "float32", "n": N, "max_rel_err": rel,
+                    "max_abs_err": absolute, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": bound_by})
+    del inputs
+    torch.cuda.empty_cache()
+    return rows
 
 
 def make_data(n, d, dtype, seed=0):
-    """bench_serving.py's data: x ~ N(0, I), y = sin(x_0) + 0.1·noise, and
-    BATCHES query batches of Q points."""
+    """bench.py's and bench_serving.py's data: x ~ N(0, I), y = sin(x_0) +
+    0.1·noise, and BATCHES query batches of Q points."""
     rng = np.random.RandomState(seed)
     x = rng.randn(n, d).astype(dtype)
     y = (np.sin(x[:, :1]) + 0.1 * rng.randn(n, 1)).astype(dtype)
@@ -150,7 +313,16 @@ def make_data(n, d, dtype, seed=0):
     return x, y, xq
 
 
-def serving_phase(torch, gram):
+def zero_counts(gram, contract):
+    gram.rbf_gram.launches = 0
+    contract.radial_contractions.launches = 0
+
+
+def read_counts(gram, contract):
+    return {"rbf_gram": gram.rbf_gram.launches, "radial_contractions": contract.radial_contractions.launches}
+
+
+def serving_phase(torch, gram, contract):
     from gptorch_tpu_torch import kernels, likelihoods, settings
     from gptorch_tpu_torch.models import GPR
 
@@ -159,8 +331,8 @@ def serving_phase(torch, gram):
     with settings.override(jitter_policy="fixed"):
         model = GPR(x, y, kernels.Rbf(D, ARD=True), likelihood=likelihoods.Gaussian(0.1))
         check(model.device.type == "cuda", "GPR did not land on the card")
-        gram.rbf_gram.launches = 0
         torch.cuda.synchronize()
+        zero_counts(gram, contract)
         t0 = time.perf_counter()
         post = model.posterior()
         torch.cuda.synchronize()
@@ -179,10 +351,10 @@ def serving_phase(torch, gram):
             m = serving.mean_only(xb)
             mean_ms.append(1e3 * (time.perf_counter() - t0))
             means.append(mu), variances.append(var), mean_only.append(m)
-        out["launches"] = {"rbf_gram": gram.rbf_gram.launches}
+        out["launches"] = read_counts(gram, contract)
         out["predict_f_ms"] = predict_ms
         out["mean_only_ms"] = mean_ms
-        check(gram.rbf_gram.launches > 0, "the serving path never launched rbf_gram")
+        check(out["launches"]["rbf_gram"] > 0, "the serving path never launched rbf_gram")
         mu, var, m = np.concatenate(means), np.concatenate(variances), np.concatenate(mean_only)
         out["finite"] = bool(np.isfinite(mu).all() and np.isfinite(var).all() and np.isfinite(m).all())
         check(out["finite"], "non-finite serving output")
@@ -203,15 +375,15 @@ def serving_phase(torch, gram):
             "tol": SERVING_TOL,
         }
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        out["stages_ms"] = stage_breakdown(torch, model, post, serving, xq[0])
+        out["stages_ms"] = serving_stages(torch, model, post, serving, xq[0])
         del model, post, serving
         torch.cuda.empty_cache()
     agree = out["serving_vs_trtrs"]
     print(f"# serving n={N} d={D} f32: factorize {out['factorize_ms']:.1f} ms, "
           f"convert {out['convert_ms']:.1f} ms, predict_f per batch of {Q} "
           f"median {np.median(predict_ms):.3f} ms, mean_only median {np.median(mean_ms):.3f} ms, "
-          f"trtrs predict_f median {np.median(trtrs_ms):.3f} ms, rbf_gram launches "
-          f"{out['launches']['rbf_gram']}, outputs finite {out['finite']}; serving vs trtrs max abs: mean "
+          f"trtrs predict_f median {np.median(trtrs_ms):.3f} ms, launches "
+          f"{out['launches']}, outputs finite {out['finite']}; serving vs trtrs max abs: mean "
           f"{agree['mean_max_abs']:.3e}, var {agree['var_max_abs']:.3e}, mean_only "
           f"{agree['mean_only_max_abs']:.3e} (tol {SERVING_TOL})", flush=True)
     for key in ("mean_max_abs", "var_max_abs", "mean_only_max_abs"):
@@ -220,7 +392,7 @@ def serving_phase(torch, gram):
     return out
 
 
-def stage_breakdown(torch, model, post, serving, xb):
+def serving_stages(torch, model, post, serving, xb):
     """Warm CUDA-event times of the serving path's stages, one by one, on
     the objects the main run built (after its launch counts were read)."""
     from gptorch_tpu_torch.functions import cholesky, trtrs
@@ -272,47 +444,282 @@ def f64_rerun(torch, kernels, likelihoods, settings, GPR, gram):
     return {"n": n, "max_rel_diff": rel, "tol": F64_REL_TOL, "launches": launched}
 
 
+def training_phase(torch, gram, contract):
+    from gptorch_tpu_torch import kernels, likelihoods
+    from gptorch_tpu_torch.models import GPR
+
+    x, y, _ = make_data(N, D, np.float32)
+    model = GPR(x, y, kernels.Rbf(D, ARD=True), likelihood=likelihoods.Gaussian(0.1),
+                fast=True, fast_block=TRAIN_NB, fast_jitter=TRAIN_JITTER)
+    check(model.device.type == "cuda", "GPR did not land on the card")
+    check(model._fast_eligible(model.X), "the flagship model is not on the fused radial path")
+    out = {"n": N, "d": D, "dtype": "float32", "method": "Adam", "steps": TRAIN_STEPS, "lr": TRAIN_LR}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = model.fit_scan("Adam", max_iter=TRAIN_STEPS, learning_rate=TRAIN_LR)
+    torch.cuda.synchronize()
+    out["warm_call_s"] = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(gram, contract)
+    t0 = time.perf_counter()
+    losses = model.fit_scan("Adam", max_iter=TRAIN_STEPS, learning_rate=TRAIN_LR)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["launches"] = read_counts(gram, contract)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["step_ms"] = 1e3 * wall / TRAIN_STEPS
+    out["steps_per_s"] = TRAIN_STEPS / wall
+    out["losses"] = [float(v) for v in torch.cat([warm, losses]).cpu()]
+    print(f"# training n={N} d={D} f32 fit_scan Adam lr={TRAIN_LR}: warm call of {TRAIN_STEPS} steps "
+          f"{out['warm_call_s']:.3f} s; timed call {out['step_ms']:.2f} ms/step, "
+          f"{out['steps_per_s']:.4f} steps/s, launches {out['launches']}, peak device memory "
+          f"{out['peak_mem_gb']:.2f} GB, losses {out['losses']}", flush=True)
+    for name, count in out["launches"].items():
+        check(count > 0, f"the training path never launched {name}")
+    check(all(math.isfinite(v) for v in out["losses"]), "non-finite training loss")
+    check(out["losses"][-1] < out["losses"][0], "training did not lower the loss")
+
+    out["stages_ms"] = training_stages(torch, model)
+    out["f32_vs_f64"] = full_width_agreement(torch, model)
+    del model
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = card_vs_cpu(torch, gram, contract)
+    return out
+
+
+def training_stages(torch, model):
+    """Warm CUDA-event times of one value-and-grad of the fused radial NLML
+    and of its stages, one by one, at the trained values (after the main
+    run's launch counts were read), each beside its bound.  Bounds count
+    float32 elements moved (the triangle a triangular operand needs) and
+    operations: n³/3 for the Cholesky, the triangular inverse and LᵀL, n²
+    for a triangular solve with one right-hand side; the whole
+    value-and-grad is bounded by the sum of its stages' bounds."""
+    from gptorch_tpu_torch.ops import blocked, contract, gpr_fast
+
+    def value_and_grad():
+        model.zero_grad(set_to_none=True)
+        model._loss().backward()
+
+    vg_ms = time_ms(value_and_grad, 2)
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    n3, tri = N ** 3 / 3, N * N / 2
+    with torch.no_grad():
+        log_ell = model.kernel.length_scales.raw
+        log_var = model.kernel.variance.raw.reshape(())
+        log_noise = model.likelihood.variance.raw.reshape(())
+        xs = gpr_fast._scaled(model.X, log_ell).contiguous()
+        diag = torch.exp(log_noise) + model.fast_jitter + model.fast_rel_jitter * torch.exp(log_var)
+        K = gpr_fast._gram(xs, log_var, "rbf", diag)
+        L = blocked.blocked_cholesky(K, TRAIN_NB, lower_only=True)
+        alpha = blocked.blocked_ltrsm(L, model.Y, leaf=4096)
+        A = blocked._solve_lower_t(L, alpha)
+        Linv = blocked.blocked_trtri(L, 1024)
+        Kinv = blocked.tril_square_rec(Linv, 512, 4096)
+        # name: (fn, reps, bound (ms, by), part of the value-and-grad)
+        stages = {
+            "forward: Gram K + noise (rbf_gram, K1)": (
+                lambda: gpr_fast._gram(xs, log_var, "rbf", diag), 5, gram_bound_ms(N, N, D, True, "float32", 4),
+                True),
+            "forward: copy of K (blocked_cholesky copies its input)": (
+                K.clone, 5, bound_ms(2 * N * N * 4, 0, "float32"), False),
+            "forward: blocked_cholesky (nb 1024, right-looking; incl. the copy)": (
+                lambda: blocked.blocked_cholesky(K, TRAIN_NB, lower_only=True), 2,
+                bound_ms(2 * tri * 4, n3, "float32"), True),
+            "yardstick: torch.linalg.cholesky_ex on the same K": (
+                lambda: torch.linalg.cholesky_ex(K), 2, bound_ms(2 * tri * 4, n3, "float32"), False),
+            "forward: blocked_ltrsm alpha = L^-1 y (leaf 4096)": (
+                lambda: blocked.blocked_ltrsm(L, model.Y, leaf=4096), 5,
+                bound_ms((tri + 2 * N) * 4, N * N, "float32"), True),
+            "backward: A = L^-T alpha (solve_triangular)": (
+                lambda: blocked._solve_lower_t(L, alpha), 5, bound_ms((tri + 2 * N) * 4, N * N, "float32"), True),
+            "backward: blocked_trtri (nb 1024)": (
+                lambda: blocked.blocked_trtri(L, 1024), 2, bound_ms(2 * tri * 4, n3, "float32"), True),
+            "backward: tril_square_rec (nb 512, leaf 4096)": (
+                lambda: blocked.tril_square_rec(Linv, 512, 4096), 2, bound_ms((tri + N * N) * 4, n3, "float32"),
+                True),
+            "backward: radial_contractions (K2)": (
+                lambda: contract.radial_contractions(Kinv, A, xs, log_var, 1, "rbf"), 5,
+                contract_bound_ms(N, D, 1, "float32", 4), True),
+        }
+        times = {name: (time_ms(fn, reps), *bound) for name, (fn, reps, bound, _) in stages.items()}
+        del K, L, alpha, A, Linv, Kinv
+    torch.cuda.empty_cache()
+    vg_bound = sum(bound[0] for _, _, bound, part in stages.values() if part)
+    times = {"value_and_grad (loss + backward)": (vg_ms, vg_bound, "sum of its stages"), **times}
+    for name, (ms, bound, by) in times.items():
+        print(f"# stage {name}: {ms:.3f} ms (bound {bound:.3f} ms, {by})", flush=True)
+    return times
+
+
+def full_width_agreement(torch, model):
+    """NLML and gradient of the fused radial path at n = 32768 in float32
+    against the same computation in float64 on the card, at the trained
+    values.  Tolerance 4·u·κ (u the float32 unit roundoff, κ a bound on the
+    condition number of K from this run's data): the Gram, the Cholesky
+    factor and the solves carry relative errors of a few u, which K⁻¹
+    amplifies by at most κ in the solution, the log-determinant and the
+    gradient's K⁻¹ terms.  κ ≤ λ_max / (σ_n² + jitter + rel·σ²): the noise
+    floor bounds λ_min from below, and λ_max comes from 30 power
+    iterations in float64."""
+    from gptorch_tpu_torch.ops import gpr_fast
+
+    raws = [model.kernel.length_scales.raw, model.kernel.variance.raw.reshape(()),
+            model.likelihood.variance.raw.reshape(())]
+    results = {}
+    for dtype in (torch.float32, torch.float64):
+        params = [r.detach().to(dtype).clone().requires_grad_() for r in raws]
+        value = gpr_fast.radial_nlml("rbf", *params, model.X.to(dtype), model.Y.to(dtype),
+                                     model.fast_jitter, model.fast_block, model.fast_rel_jitter)
+        grads = torch.autograd.grad(value, params)
+        results[dtype] = (float(value.detach()), np.concatenate([g.double().cpu().numpy().ravel() for g in grads]))
+        del value, grads
+        torch.cuda.empty_cache()
+    with torch.no_grad():
+        p = [r.detach().double() for r in raws]
+        xs = gpr_fast._scaled(model.X.double(), p[0]).contiguous()
+        floor = torch.exp(p[2]) + model.fast_jitter + model.fast_rel_jitter * torch.exp(p[1])
+        K = gpr_fast._gram(xs, p[1], "rbf", floor)
+        v = torch.ones(N, 1, dtype=torch.float64, device=K.device)
+        for _ in range(30):
+            v = K @ v
+            lam_max = float(v.norm())
+            v /= lam_max
+        del K
+        kappa = lam_max / float(floor)
+    torch.cuda.empty_cache()
+    tol = 4 * F32_UNIT_ROUNDOFF * kappa
+    (v32, g32), (v64, g64) = results[torch.float32], results[torch.float64]
+    value_rel = abs(v32 - v64) / abs(v64)
+    grad_rel = float(np.abs(g32 - g64).max() / np.abs(g64).max())
+    print(f"# training f32 vs f64 at n={N}: NLML {v32!r} vs {v64!r} (rel {value_rel:.3e}); gradient "
+          f"max|g32-g64|/max|g64| = {grad_rel:.3e}; kappa <= {kappa:.1f}, tol 4*u*kappa = {tol:.3e}; "
+          f"g64 = {g64.tolist()}", flush=True)
+    check(value_rel <= tol, f"f32 vs f64 NLML at n={N}: {value_rel} > {tol}")
+    check(grad_rel <= tol, f"f32 vs f64 gradient at n={N}: {grad_rel} > {tol}")
+    return {"nlml_f32": v32, "nlml_f64": v64, "value_rel": value_rel, "grad_rel": grad_rel,
+            "kappa_bound": kappa, "tol": tol}
+
+
+def card_vs_cpu(torch, gram, contract):
+    """n = 4096 in float64: loss and gradient of GPR on the card against the
+    CPU's plain route, on the three training paths, to 1e-8 relative (the
+    gradient relative to its largest entry)."""
+    from gptorch_tpu_torch import kernels, likelihoods, mean_functions, settings
+    from gptorch_tpu_torch.models import GPR
+    from gptorch_tpu_torch.module import get_trainable
+
+    n = 4096
+    x, y, _ = make_data(n, D, np.float64, seed=2)
+    ell = np.linspace(0.8, 1.6, D)
+    routes = {
+        "fused radial (Rbf, fast=True)": lambda: (kernels.Rbf(D, ARD=True, length_scales=ell, variance=1.3),
+                                                  None, True),
+        "generic (Rbf, fast=False)": lambda: (kernels.Rbf(D, ARD=True, length_scales=ell, variance=1.3),
+                                              None, False),
+        "general (Rbf + Matern32, LinearMean)": lambda: (
+            kernels.Rbf(D, ARD=True, length_scales=ell, variance=1.3) + kernels.Matern32(D, variance=0.4),
+            mean_functions.LinearMean(D, 1, W=0.1 * np.ones((1, D)), b=np.array([0.2])), True),
+    }
+    expect = {  # (rbf_gram, radial_contractions) launches on the card
+        "fused radial (Rbf, fast=True)": lambda c: c["rbf_gram"] == 1 and c["radial_contractions"] == 1,
+        "generic (Rbf, fast=False)": lambda c: c["rbf_gram"] >= 1,
+        "general (Rbf + Matern32, LinearMean)": lambda c: c["rbf_gram"] >= 2,
+    }
+    out = {}
+    with default_dtype(torch, torch.float64), settings.override(jitter_policy="fixed"):
+        for route, make in routes.items():
+            res = {}
+            for device in ("cuda", "cpu"):
+                kern, mean, fast = make()
+                model = GPR(x, y, kern, mean_function=mean, likelihood=likelihoods.Gaussian(0.1), fast=fast,
+                            fast_block=TRAIN_NB, device=device)
+                zero_counts(gram, contract)
+                loss = model.loss()
+                loss.backward()
+                raws = get_trainable(model)
+                res[device] = (float(loss.detach()), np.concatenate([raws[k].grad.cpu().numpy().ravel()
+                                                            for k in sorted(raws)]), read_counts(gram, contract))
+                del model, loss, raws
+            value_rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+            grad_rel = float(np.abs(res["cuda"][1] - res["cpu"][1]).max() / np.abs(res["cpu"][1]).max())
+            print(f"# training f64 card vs CPU n={n} {route}: loss rel {value_rel:.3e}, gradient rel "
+                  f"{grad_rel:.3e} (tol {F64_REL_TOL}), card launches {res['cuda'][2]}", flush=True)
+            check(expect[route](res["cuda"][2]), f"{route}: unexpected launches {res['cuda'][2]}")
+            check(res["cpu"][2] == {"rbf_gram": 0, "radial_contractions": 0}, f"{route}: the CPU launched")
+            check(value_rel <= F64_REL_TOL, f"{route}: loss card vs CPU {value_rel} > {F64_REL_TOL}")
+            check(grad_rel <= F64_REL_TOL, f"{route}: gradient card vs CPU {grad_rel} > {F64_REL_TOL}")
+            out[route] = {"value_rel": value_rel, "grad_rel": grad_rel, "launches": res["cuda"][2]}
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
-    from gptorch_tpu_torch.ops import _build, gram
+    from gptorch_tpu_torch.ops import _build, contract, gram
 
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
-    _build.build(["rbf_gram"])
+    _build.build(["rbf_gram", "radial_contract"])
     gram._kernel_library()
-    build_s = time.perf_counter() - t0
-    print(f"# build {build_s:.2f} s", flush=True)
+    contract._kernel_library()
+    print(f"# build {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"# nvcc {name}: {line.strip()}", flush=True)
 
-    rows = kernel_phase(torch, gram)
-    serving = serving_phase(torch, gram)
+    gram_rows = gram_phase(torch, gram)
+    contract_rows = contraction_phase(torch, contract)
+    serving = serving_phase(torch, gram, contract)
+    training = training_phase(torch, gram, contract)
 
-    main_row = rows[0]
-    kernels_line = {"kernels": [{
-        "name": "rbf_gram",
-        "route": "cuda",
-        "source": "gptorch_tpu_torch/csrc/rbf_gram.cu",
-        "replaces": "gptorch_tpu/ops/pallas_gram.py:40",
-        "launches": serving["launches"]["rbf_gram"],
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": None,
-        "shape": [main_row["n1"], main_row["n2"], D],
-        "dtype": main_row["dtype"],
-    }]}
-    print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, peak device memory "
-          f"{serving['peak_mem_gb']:.1f} GB", flush=True)
+    paths = {"serving": serving["launches"], "training": training["launches"]}
+    g, c = gram_rows[0], contract_rows[0]
+    kernels_line = {"kernels": [
+        {
+            "name": "rbf_gram",
+            "route": "cuda",
+            "source": "gptorch_tpu_torch/csrc/rbf_gram.cu",
+            "replaces": "gptorch_tpu/ops/pallas_gram.py:40",
+            "launches": sum(p["rbf_gram"] for p in paths.values()),
+            "launches_by_path": {k: p["rbf_gram"] for k, p in paths.items()},
+            "max_abs_err": g["max_abs_err"],
+            "ms": g["ms"],
+            "plain_ms": g["plain_ms"],
+            "bound_ms": g["bound_ms"],
+            "bound_by": g["bound_by"],
+            "library_ms": None,
+            "shape": [g["n1"], g["n2"], D],
+            "dtype": g["dtype"],
+        },
+        {
+            "name": "radial_contractions",
+            "route": "cuda",
+            "source": "gptorch_tpu_torch/csrc/radial_contract.cu",
+            "replaces": "gptorch_tpu/ops/gpr_fast.py:300",
+            "launches": sum(p["radial_contractions"] for p in paths.values()),
+            "launches_by_path": {k: p["radial_contractions"] for k, p in paths.items()},
+            "max_abs_err": c["max_abs_err"],
+            "max_rel_err": c["max_rel_err"],
+            "ms": c["ms"],
+            "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"],
+            "library_ms": None,
+            "shape": [c["n"], D, 1],
+            "dtype": c["dtype"],
+        },
+    ]}
+    print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, peak device memory: serving "
+          f"{serving['peak_mem_gb']:.1f} GB, training {training['peak_mem_gb']:.1f} GB", flush=True)
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -17,6 +17,7 @@ from . import (
     ops,
     priors,
     settings,
+    training,
 )
 from .module import Module, get_trainable, pack_vector, set_trainable, unpack_vector
 from .param import Param, positive_param
@@ -32,6 +33,7 @@ __all__ = [
     "ops",
     "priors",
     "settings",
+    "training",
     "Module",
     "Param",
     "get_trainable",

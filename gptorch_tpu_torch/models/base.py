@@ -2,13 +2,14 @@
 
 Counterpart of ``gptorch_tpu/models/base.py``: data + kernel + likelihood +
 mean function on one explicit device, the default-noise heuristic, the loss,
-and numpy-in/numpy-out prediction.  Training (``optimize``/``fit_scan``) is
-not ported yet.
+training (``optimize``/``fit_scan``, in place) and numpy-in/numpy-out
+prediction.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -17,6 +18,7 @@ from .. import likelihoods as _likelihoods
 from .. import mean_functions as _means
 from .. import settings
 from ..module import Module
+from ..training import fit as _fit
 from ..util import as_array
 
 
@@ -130,8 +132,43 @@ class GPModel(Predictive):
                 raise ValueError("X and Y must have same # data.")
         out = self._loss(x=x, y=y)
         if not bool(torch.isfinite(out)):
-            raise FloatingPointError(
-                "Loss is non-finite: the noise variance may sit below the "
-                "factorization's floor; raise it or the jitter."
-            )
+            raise _fit._nonfinite_loss_error()
         return out
+
+    def optimize(
+        self,
+        method: str = "Adam",
+        max_iter: int = 2000,
+        verbose: bool = True,
+        learning_rate: Optional[float] = None,
+        callback=None,
+    ):
+        """Fit the hyperparameters by minimizing the loss, in place.
+
+        First-order methods (Adam, SGD, RMSprop, Adagrad, Adadelta, Adamax)
+        run :func:`~gptorch_tpu_torch.training.fit.fit_torch` and return
+        (losses, wall seconds); scipy methods (L-BFGS-B, BFGS, CG, ...) run
+        :func:`~gptorch_tpu_torch.training.fit.fit_scipy` and return its
+        OptimizeResult.  LBFGS is not ported.
+        """
+        if method in _fit.SCIPY_METHODS:
+            if verbose:
+                print("Scipy.optimize.minimize...")
+            _, result = _fit.fit_scipy(self, method=method, max_iter=max_iter, disp=verbose)
+            return result
+        if verbose:
+            print(f"{self.name}: Start optimizing via {method}")
+        _, losses, wall = _fit.fit_torch(
+            self, method=method, max_iter=max_iter, learning_rate=learning_rate,
+            verbose=verbose, callback=callback,
+        )
+        if verbose:
+            print(f"Optimization time taken: {wall} s")
+            print(f"Optimization method: {method}")
+        return losses, wall
+
+    def fit_scan(self, method: str = "Adam", max_iter: int = 2000, learning_rate: Optional[float] = None):
+        """Train in place with no host read per step
+        (:func:`~gptorch_tpu_torch.training.fit.fit_scan`); returns the
+        losses as a tensor on the model's device."""
+        return _fit.fit_scan(self, method=method, max_iter=max_iter, learning_rate=learning_rate)[1]

@@ -12,10 +12,15 @@ and the posterior
     mean = Aᵀ(L⁻¹(y-m(X))) + m(X*)
     var  = Kdiag(X*) - ΣA²   (diag)  |  K(X*,X*) - AᵀA  (full)
 
-Every loss takes the generic path (autograd through :func:`cholesky`); the
-JAX package's routing to its fused closed-form-VJP NLML (``_fast_eligible``)
-is not ported yet, so the ``fast*`` and iterative-solver arguments are kept
-only for signature parity.
+The training loss routes as the JAX package's does: a radial kernel (Rbf,
+Matern12/32/52, RationalQuadratic, ARD or not) with a Zero mean and Exp
+bijectors takes the fused radial NLML (:mod:`~gptorch_tpu_torch.ops.gpr_fast`);
+any other kernel without a White component takes the kernel-general fused
+NLML (:mod:`~gptorch_tpu_torch.ops.gpr_general`); both at n ≥
+``AUTO_FAST_MIN_N`` unless ``fast`` forces them on or off.  Everything else
+takes the generic path (autograd through :func:`cholesky`).  The
+iterative-solver arguments are kept for signature parity:
+``solver="iterative"`` and ``objective="loo"`` are not ported.
 """
 
 from __future__ import annotations
@@ -24,9 +29,27 @@ import math
 
 import torch
 
+from .. import kernels as _k
+from .. import mean_functions as _m
+from ..bijectors import Exp
 from ..functions import add_diag, cholesky, lt_log_determinant, trtrs
-from ..kernels import Rbf
+from ..likelihoods import Gaussian
+from ..ops.gpr_fast import radial_nlml
+from ..ops.gpr_general import general_nlml
 from .base import GPModel
+
+#: Auto-routing threshold: below this n the generic autograd path is cheap;
+#: at and above it the fused closed-form-backward paths are faster and
+#: leaner in memory.
+AUTO_FAST_MIN_N = 4096
+
+_FAST_KINDS = (
+    ("rbf", _k.Rbf),
+    ("matern12", _k.Matern12),
+    ("matern32", _k.Matern32),
+    ("matern52", _k.Matern52),
+    ("rq", _k.RationalQuadratic),
+)
 
 
 class GPR(GPModel):
@@ -77,9 +100,79 @@ class GPR(GPModel):
         self.objective = objective
         self.solver = solver
 
+    def _fast_kind(self):
+        for kind, cls in _FAST_KINDS:
+            if type(self.kernel) is cls:
+                return kind
+        return None
+
+    def _fast_eligible(self, x):
+        if self.fast is False:
+            return False
+        if self.fast is None and x.shape[0] < AUTO_FAST_MIN_N:
+            return False
+        return self._fast_eligible_config()
+
+    def _general_eligible(self, x):
+        """Eligibility for the kernel-general fused path: any kernel, mean
+        and bijector, a Gaussian likelihood, and no White component in the
+        kernel (its cross-covariance is zeros, so the row rebuild would drop
+        its diagonal -- fold White into the noise instead)."""
+        if self.fast is False:
+            return False
+        if self.fast is None and x.shape[0] < AUTO_FAST_MIN_N:
+            return False
+        has_white = any(isinstance(m, _k.White) for m in self.kernel.modules())
+        return type(self.likelihood) is Gaussian and not has_white
+
+    def _fast_eligible_config(self):
+        """A radial kernel, a Zero mean, and Exp bijectors on every
+        hyperparameter: the fused op reads the raw values as logs."""
+        kind = self._fast_kind()
+        ok = (
+            type(self.likelihood) is Gaussian
+            and kind is not None
+            and isinstance(self.mean_function, _m.Zero)
+            and isinstance(self.kernel.length_scales.bijector, Exp)
+            and isinstance(self.kernel.variance.bijector, Exp)
+            and isinstance(self.likelihood.variance.bijector, Exp)
+        )
+        if ok and kind == "rq":
+            ok = isinstance(self.kernel.alpha.bijector, Exp)
+        return ok
+
     def log_likelihood(self, x=None, y=None):
         x = x if x is not None else self.X
         y = y if y is not None else self.Y
+        if self._fast_eligible(x):
+            # x and y are data: detached, so no caller silently gets a zero
+            # gradient for them from the closed-form backward.
+            kind = self._fast_kind()
+            log_extra = self.kernel.alpha.raw.reshape((1,)) if kind == "rq" else None
+            return -radial_nlml(
+                kind,
+                self.kernel.length_scales.raw,
+                self.kernel.variance.raw.reshape(()),
+                self.likelihood.variance.raw.reshape(()),
+                x.detach(),
+                y.detach(),
+                self.fast_jitter,
+                self.fast_block,
+                self.fast_rel_jitter,
+                log_extra,
+            )
+        if self._general_eligible(x):
+            return -general_nlml(
+                self.kernel,
+                self.mean_function,
+                self.likelihood.variance.value.reshape(()),
+                x.detach(),
+                y.detach(),
+                self.fast_jitter,
+                self.fast_block,
+                self.fast_rel_jitter,
+                self.fast_precision,
+            )
         num_input, dim_output = y.shape
         L = cholesky(self._compute_kyy(x=x))
         alpha = trtrs(y - self.mean_function(x), L)
@@ -91,7 +184,7 @@ class GPR(GPModel):
         ``diag`` argument, which the card's kernel adds as it writes."""
         x = x if x is not None else self.X
         noise = self.likelihood.variance.value.reshape(()).to(x.dtype)
-        if type(self.kernel) is Rbf:
+        if type(self.kernel) is _k.Rbf:
             return self.kernel.K(x, diag=noise)
         return add_diag(self.kernel.K(x), noise)
 

@@ -9,7 +9,7 @@ package uses (``"kernel.variance"``, ``"likelihood.variance"``, ...), so
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +47,14 @@ def get_trainable(module: Module) -> Dict[str, torch.Tensor]:
     """The raw (unconstrained) ``nn.Parameter`` of every trainable Param,
     keyed by dotted path."""
     return {path: p.raw for path, p in module.named_params() if p.trainable}
+
+
+def trainable_parameters(*modules: nn.Module) -> List[nn.Parameter]:
+    """Every ``nn.Parameter`` of ``modules`` that requires grad, each once
+    (one shared by two paths or two modules counts once): the raw values
+    of the trainable Params, and any plain parameter a module holds.  What
+    an optimizer or ``torch.autograd.grad`` takes."""
+    return list({id(p): p for m in modules for p in m.parameters() if p.requires_grad}.values())
 
 
 def set_trainable(module: Module, values: Dict[str, torch.Tensor]) -> Module:

@@ -14,8 +14,10 @@ by the n1·n2 write: 4.29 GB for n = 32768 in float32, about 1.28 ms at the
 H100's 3.35 TB/s.  On a CPU tensor it computes :func:`rbf_gram_plain`,
 which is also the reference the kernel is tested against.
 
-The kernel has no backward yet: on CUDA an input that requires grad while
-grad is enabled raises ``NotImplementedError``.
+On CUDA the launch is the forward of a ``torch.autograd.Function`` whose
+backward is plain torch ops on the saved output (:func:`_gram_vjp`); the
+Pallas kernel has no backward either -- JAX differentiates its generic path
+through XLA.
 """
 
 from __future__ import annotations
@@ -76,36 +78,17 @@ def _kernel_library():
     return lib
 
 
-def rbf_gram(x1, x2=None, *, var, diag=None):
-    """var·exp(−½‖x1[i] − x2[j]‖²) (+ ``diag`` on the diagonal when ``x2``
-    is None), for scaled inputs ``x1`` (n1, d) and ``x2`` (n2, d).
-
-    :param var: kernel variance, a number or a tensor with one element.
-    :param diag: value added on the diagonal in the symmetric case (the
-        noise variance), a number or a one-element tensor; ignored for a
-        cross Gram.
-
-    CUDA tensors launch the kernel (and count the launch in
-    ``rbf_gram.launches``); CPU tensors take :func:`rbf_gram_plain`.
-    """
+def _launch(x1, x2, var, diag):
+    """One launch of the kernel; ``x2`` None is the symmetric case, ``var``
+    and ``diag`` (None for a cross Gram) are 0-d tensors on the card."""
+    lib = _kernel_library()
     sym = x2 is None
     x2_ = x1 if sym else x2
-    _check(x1, x2_)
-    if x1.device.type == "cpu":
-        return rbf_gram_plain(x1, x2, var, diag)
-    if x1.device.type != "cuda":
-        raise ValueError(f"rbf_gram: unsupported device {x1.device}")
-    tensors = [t for t in (x1, x2_, var, diag) if isinstance(t, torch.Tensor)]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "rbf_gram on CUDA has no backward yet; call it under torch.no_grad()"
-        )
-    lib = _kernel_library()
     n1, d = x1.shape
     n2 = x2_.shape[0]
     if n1 > lib.rbf_gram_max_rows():
         raise ValueError(f"rbf_gram: {n1} rows exceed one launch's {lib.rbf_gram_max_rows()}")
-    scal = torch.stack([_scalar(var, x1), _scalar(0.0 if diag is None else diag, x1)])
+    scal = torch.stack([var, var.new_zeros(()) if diag is None else diag])
     out = torch.empty((n1, n2), dtype=x1.dtype, device=x1.device)
     if n1 == 0 or n2 == 0:
         return out
@@ -119,6 +102,66 @@ def rbf_gram(x1, x2=None, *, var, diag=None):
         raise RuntimeError(f"rbf_gram launch failed: {lib.rbf_gram_error_string(code).decode()}")
     rbf_gram.launches += 1
     return out
+
+
+def _gram_vjp(g, out, x1, x2, var, diag):
+    """Cotangents of (x1, x2, var, diag) for the cotangent ``g`` of
+    ``out = rbf_gram(x1, x2, var=var, diag=diag)``, from the saved output.
+
+    With M = g ⊙ (out − diag·I) = g ⊙ G (G the noiseless Gram):
+    ∂/∂var = ΣM / var, ∂/∂diag = tr g, ∂/∂x1 = M x2 − rowsum(M)·x1 and
+    ∂/∂x2 = Mᵀ x1 − colsum(M)·x2; in the symmetric case (``x2`` None) the
+    two input cotangents are summed into the one input's.
+    """
+    sym = x2 is None
+    M = g * out
+    if sym:
+        M.diagonal().sub_(g.diagonal() * diag)
+    x2_ = x1 if sym else x2
+    d_x1 = M @ x2_ - M.sum(dim=1, keepdim=True) * x1
+    d_x2 = M.T @ x1 - M.sum(dim=0).unsqueeze(1) * x2_
+    d_var = M.sum() / var
+    if sym:
+        return d_x1 + d_x2, None, d_var, g.diagonal().sum()
+    return d_x1, d_x2, d_var, None
+
+
+class _RbfGram(torch.autograd.Function):
+    """The kernel launch with a backward of plain torch ops (:func:`_gram_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, x1, x2, var, diag):
+        out = _launch(x1, x2, var, diag)
+        ctx.save_for_backward(x1, x2, var, diag, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x1, x2, var, diag, out = ctx.saved_tensors
+        return _gram_vjp(g, out, x1, x2, var, diag)
+
+
+def rbf_gram(x1, x2=None, *, var, diag=None):
+    """var·exp(−½‖x1[i] − x2[j]‖²) (+ ``diag`` on the diagonal when ``x2``
+    is None), for scaled inputs ``x1`` (n1, d) and ``x2`` (n2, d).
+
+    :param var: kernel variance, a number or a tensor with one element.
+    :param diag: value added on the diagonal in the symmetric case (the
+        noise variance), a number or a one-element tensor; ignored for a
+        cross Gram.
+
+    CUDA tensors launch the kernel (and count the launch in
+    ``rbf_gram.launches``), differentiably in every tensor argument; CPU
+    tensors take :func:`rbf_gram_plain`.
+    """
+    sym = x2 is None
+    _check(x1, x1 if sym else x2)
+    if x1.device.type == "cpu":
+        return rbf_gram_plain(x1, x2, var, diag)
+    if x1.device.type != "cuda":
+        raise ValueError(f"rbf_gram: unsupported device {x1.device}")
+    diag = _scalar(0.0 if diag is None else diag, x1) if sym else None
+    return _RbfGram.apply(x1, x2, _scalar(var, x1), diag)
 
 
 #: Number of kernel launches made by :func:`rbf_gram` in this process.

@@ -7,13 +7,16 @@ has only PyTorch; there, skip the JAX-configuring tests/conftest.py:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
-from gptorch_tpu_torch import kernels, likelihoods, settings
+from gptorch_tpu_torch import kernels, likelihoods, mean_functions, settings
 from gptorch_tpu_torch.models import GPR
-from gptorch_tpu_torch.ops import gram
+from gptorch_tpu_torch.module import get_trainable
+from gptorch_tpu_torch.ops import contract, gpr_fast, gram
 
 
 @pytest.fixture
@@ -52,12 +55,149 @@ def test_kernel_feature_widths(cuda, d):
     assert float((out - gram.rbf_gram_plain(x1, x2, 0.7)).abs().max()) <= 1e-12
 
 
-def test_kernel_rejects_grad(cuda):
-    x = torch.randn(8, 2, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        gram.rbf_gram(x, var=1.0)
-    with torch.no_grad():
-        assert gram.rbf_gram(x, var=1.0).shape == (8, 8)
+@pytest.mark.parametrize("sym", [True, False])
+def test_kernel_backward_matches_plain(cuda, sym):
+    """K1's backward (torch ops on the kernel's output) against autograd
+    through the plain version, float64."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    leaves = {
+        "x1": torch.randn(300, 5, generator=g, device="cuda", dtype=torch.float64),
+        "x2": None if sym else torch.randn(170, 5, generator=g, device="cuda", dtype=torch.float64),
+        "var": torch.tensor(1.3, device="cuda", dtype=torch.float64),
+        "diag": torch.tensor(0.1, device="cuda", dtype=torch.float64) if sym else None,
+    }
+    grads = []
+    for fn in (lambda a, b, v, d: gram.rbf_gram(a, b, var=v, diag=d), gram.rbf_gram_plain):
+        inputs = {k: None if t is None else t.clone().requires_grad_() for k, t in leaves.items()}
+        out = fn(*inputs.values())
+        cot = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(3),
+                          device="cuda", dtype=torch.float64)
+        grads.append(torch.autograd.grad(out, [t for t in inputs.values() if t is not None], cot))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10)
+
+
+def _contraction_inputs(n, d, dy, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xs = torch.randn(n, d, generator=g, device="cuda", dtype=dtype)
+    # A duplicate point, so matern12's E mask is hit off the diagonal.  Its
+    # coordinates are multiples of 1/4: the plain twin's norm identity is then
+    # exact for the pair (any rounding would leave r² = ±eps, which E = G/r
+    # turns into a huge term).
+    xs[n // 2] = xs[n // 3] = torch.arange(d, device="cuda", dtype=dtype) % 5 * 0.25 - 0.5
+    M = torch.randn(n, n, generator=g, device="cuda", dtype=dtype) / n ** 0.5
+    Kinv = M @ M.T + torch.eye(n, device="cuda", dtype=dtype)
+    A = torch.randn(n, dy, generator=g, device="cuda", dtype=dtype)
+    log_var = torch.tensor(0.2, device="cuda", dtype=dtype)
+    log_extra = torch.tensor([-0.5], device="cuda", dtype=dtype)
+    return Kinv, A, xs, log_var, log_extra
+
+
+#: Kernel vs the plain twin evaluated in float64 on the same inputs, relative
+#: to the sum of absolute terms of each output (contract.contraction_scales).
+#: float32: the kernel rounds each term (and W = dy·K⁻¹ − AAᵀ) at u = 6e-8 and
+#: sums a row's n terms in 32 sequential lanes, about √(n/32)·u of the scale
+#: for errors that behave as random; 2e-5 leaves a wide margin at n ≤ 1000.
+#: The twin runs in float64 because its r² by the norm identity loses up to
+#: u·(|x̃ᵢ|² + |x̃ⱼ|²) absolute, which matern12's E = G/r amplifies at the
+#: closest pairs (r² ≈ 1e-3 at n = 1000, d = 3) past any float32 tolerance.
+#: float64: the same amplification of the twin's own r² (u = 1.1e-16) reaches
+#: about 1e-12 of the scale at those pairs; 1e-10 leaves a margin.
+CONTRACT_TOL = {torch.float32: 2e-5, torch.float64: 1e-10}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", contract.KINDS)
+@pytest.mark.parametrize("n, d, dy", [(1000, 3, 2), (257, 8, 1), (130, 13, 3), (70, 20, 1)])
+def test_contraction_kernel_matches_plain(cuda, dtype, kind, n, d, dy):
+    Kinv, A, xs, log_var, log_extra = _contraction_inputs(n, d, dy, dtype)
+    before = contract.radial_contractions.launches
+    got = contract.radial_contractions(Kinv, A, xs, log_var, dy, kind, log_extra)
+    torch.cuda.synchronize()
+    assert contract.radial_contractions.launches == before + 1
+    ref = [t.double() for t in (Kinv, A, xs, log_var, log_extra)]
+    want = contract.radial_contractions_plain(*ref[:4], dy, kind, ref[4])
+    scales = contract.contraction_scales(*ref[:4], dy, kind, ref[4])
+    for name, a, b, s in zip(("svar", "rowsum", "MX", "sextra"), got, want, scales):
+        assert a.shape == b.shape and a.dtype == dtype, name
+        err = (a.double() - b).abs()
+        assert bool((err <= CONTRACT_TOL[dtype] * s + 1e-30).all()), (name, float(err.max()))
+
+
+def test_contraction_kernel_is_deterministic(cuda):
+    inputs = _contraction_inputs(1500, 8, 1, torch.float32)
+    first = contract.radial_contractions(*inputs[:4], 1, "rbf")
+    second = contract.radial_contractions(*inputs[:4], 1, "rbf")
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_contraction_kernel_rejects_wide_inputs(cuda):
+    Kinv, A, xs, log_var, _ = _contraction_inputs(40, 33, 1, torch.float32)
+    with pytest.raises(ValueError, match="d <= 32"):
+        contract.radial_contractions(Kinv, A, xs, log_var, 1, "rbf")
+
+
+@contextlib.contextmanager
+def _float64():
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        yield
+    finally:
+        torch.set_default_dtype(old)
+
+
+@pytest.mark.parametrize("kind", contract.KINDS)
+def test_radial_nlml_card_matches_cpu(cuda, kind):
+    """The fused radial NLML and its gradient in float64: the card's route
+    (K1 for rbf, K2 for every kind) against the CPU's plain route."""
+    rng = np.random.RandomState(5)
+    x, y = rng.randn(300, 3), rng.randn(300, 2)
+    theta = [np.log([0.9, 1.2, 0.7]), np.asarray(0.3), np.asarray(-2.0), np.asarray([-0.4])]
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = [torch.tensor(t, device=device, requires_grad=True) for t in theta]
+        extra = params[3] if kind == "rq" else None
+        before = (gram.rbf_gram.launches, contract.radial_contractions.launches)
+        v = gpr_fast.radial_nlml(kind, *params[:3], torch.as_tensor(x, device=device),
+                                 torch.as_tensor(y, device=device), 1e-4, 64, 1e-3, extra)
+        v.backward()
+        launched = (gram.rbf_gram.launches - before[0], contract.radial_contractions.launches - before[1])
+        out[device] = (v.detach().cpu(), [p.grad.cpu() for p in params[: 4 if kind == "rq" else 3]], launched)
+    assert out["cuda"][2] == ((1 if kind == "rbf" else 0), 1)
+    assert out["cpu"][2] == (0, 0)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-10, atol=0)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.parametrize("route", ["generic", "general"])
+def test_training_routes_card_match_cpu(cuda, route):
+    """GPR loss and gradient in float64 on the generic route (Rbf, fast=False:
+    K1 with its backward under autograd) and the kernel-general route
+    (Rbf + Matern32 with a LinearMean: K1's backward inside the row sweep)."""
+    rng = np.random.RandomState(6)
+    x, y = rng.randn(260, 3), rng.randn(260, 1)
+    out = {}
+    with _float64():
+        for device in ("cuda", "cpu"):
+            if route == "generic":
+                kern, mean, fast = kernels.Rbf(3, ARD=True), None, False
+            else:
+                kern = kernels.Rbf(3, ARD=True) + kernels.Matern32(3)
+                mean, fast = mean_functions.LinearMean(3, 1, W=np.array([[0.2, -0.1, 0.3]])), True
+            model = GPR(x, y, kern, mean_function=mean, likelihood=likelihoods.Gaussian(0.1), fast=fast,
+                        fast_block=64, device=device)
+            before = gram.rbf_gram.launches
+            loss = model.loss()
+            loss.backward()
+            out[device] = (float(loss.detach()), {k: v.grad.cpu() for k, v in get_trainable(model).items()},
+                           gram.rbf_gram.launches - before)
+    assert out["cuda"][2] >= 1 and out["cpu"][2] == 0
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-10)
+    for k, g in out["cuda"][1].items():
+        torch.testing.assert_close(g, out["cpu"][1][k], rtol=1e-8, atol=1e-10)
 
 
 def test_default_device_is_the_card(cuda):
@@ -70,9 +210,7 @@ def test_default_device_is_the_card(cuda):
 def test_serving_card_matches_cpu(cuda):
     """The whole serving path in float64: the card's route against the
     CPU's plain route on the same data."""
-    old = torch.get_default_dtype()
-    torch.set_default_dtype(torch.float64)
-    try:
+    with _float64():
         rng = np.random.RandomState(0)
         x = rng.randn(300, 3)
         y = np.sin(x[:, :1]) + 0.1 * rng.randn(300, 1)
@@ -84,7 +222,5 @@ def test_serving_card_matches_cpu(cuda):
                 post = model.posterior()
                 serving = post.for_serving(nb=64)
                 out[device] = (*post.predict_f(xs), *serving.predict_y(xs), serving.mean_only(xs))
-    finally:
-        torch.set_default_dtype(old)
     for a, b in zip(out["cuda"], out["cpu"]):
         np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12)

@@ -115,3 +115,25 @@ class TestWrapperOnCpu:
         with pytest.raises(err):
             gram.rbf_gram(x1, x2, var=1.0)
 
+
+
+@pytest.mark.parametrize("sym", [True, False])
+def test_backward_formula_matches_autograd_of_plain(sym):
+    """The kernel's backward (_gram_vjp, torch ops on the saved output)
+    against autograd through the plain version, float64 on the CPU: the
+    card runs the same function on the kernel's output."""
+    rng = np.random.RandomState(8)
+    x1 = torch.tensor(rng.randn(9, 3), requires_grad=True)
+    x2 = None if sym else torch.tensor(rng.randn(6, 3), requires_grad=True)
+    var = torch.tensor(1.3, dtype=torch.float64, requires_grad=True)
+    diag = torch.tensor(0.2, dtype=torch.float64, requires_grad=True) if sym else None
+    out = gram.rbf_gram_plain(x1, x2, var, diag)
+    g = torch.as_tensor(rng.randn(*out.shape))
+    inputs = [t for t in (x1, x2, var, diag) if t is not None]
+    want = torch.autograd.grad(out, inputs, grad_outputs=g)
+    got = gram._gram_vjp(g, out.detach(), x1.detach(), None if sym else x2.detach(), var.detach(),
+                         None if diag is None else diag.detach())
+    got = [t for t in got if t is not None]
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10, atol=1e-12)
