@@ -13,7 +13,8 @@
      float64, and its backward against autograd through the plain twin.
    - K2 ``radial_contractions``: the five radial kinds in float32 and
      float64 at n = 4096, and rbf in float32 at the training shape
-     n = 32768.
+     n = 32768; then the five kinds timed at n = 32768 in float32, each
+     with its GB/s and share of the bound.
 3. Serving phase (main path 1): the exact-GP serving path at the flagship
    width, n = 32768, d = 8, Rbf-ARD, Gaussian(0.1), fixed jitter, float32:
    GPR -> posterior() -> for_serving() -> 8 batches of 256 queries through
@@ -125,15 +126,19 @@ def gram_bound_ms(n1, n2, d, sym, dtype, itemsize):
     return bound_ms(bytes_moved, n1 * n2 * (3 * d + 3), dtype)
 
 
+def contract_bytes(n, d, dy, itemsize):
+    """Bytes the backward contraction must move: K⁻¹, A, x̃ and the two
+    scalars read once, rowsum, MX and the two sums written once."""
+    return (n * n + n * dy + n * d + 2 + n + n * d + 2) * itemsize
+
+
 def contract_bound_ms(n, d, dy, dtype, itemsize):
-    """Least time for the rbf backward contraction: K⁻¹, A, x̃ and the two
-    scalars read once, rowsum, MX and the two sums written once;
+    """Least time for the rbf backward contraction: its bytes, and
     5d + 2dy + 8 operations per (i, j): r² (d differences, d fused
     multiply-adds), W (a scale, dy fused multiply-adds), G (scale, exp,
     variance), the svar fused multiply-add, W·E, the row sum, and d fused
     multiply-adds into MX, a fused multiply-add counted as two."""
-    bytes_moved = (n * n + n * dy + n * d + 2 + n + n * d + 2) * itemsize
-    return bound_ms(bytes_moved, n * n * (5 * d + 2 * dy + 8), dtype)
+    return bound_ms(contract_bytes(n, d, dy, itemsize), n * n * (5 * d + 2 * dy + 8), dtype)
 
 
 @contextlib.contextmanager
@@ -242,17 +247,18 @@ def contraction_inputs(torch, n, d, dy, dtype, seed):
 
 def contraction_error(torch, contract, got, inputs, dy, kind, ref_dtype):
     """Largest |kernel − twin| over the outputs, relative to each output's
-    sum of absolute terms, with the twin run in ``ref_dtype``; and the
-    largest absolute difference."""
+    sum of absolute terms, with the twin run in ``ref_dtype``; the largest
+    absolute difference; and the relative error of each output (svar,
+    rowsum, MX, sextra)."""
     ref = [t.to(ref_dtype) for t in inputs]
     want = contract.radial_contractions_plain(*ref[:4], dy, kind, ref[4])
     scales = contract.contraction_scales(*ref[:4], dy, kind, ref[4])
-    rel = absolute = 0.0
+    rels, absolute = [], 0.0
     for a, b, s in zip(got, want, scales):
         err = (a.to(ref_dtype) - b).abs()
-        rel = max(rel, float((err / s.clamp_min(1e-300)).max()))
+        rels.append(float((err / s.clamp_min(1e-300)).max()))
         absolute = max(absolute, float(err.max()))
-    return rel, absolute
+    return max(rels), absolute, rels
 
 
 def contraction_phase(torch, contract):
@@ -265,7 +271,7 @@ def contraction_phase(torch, contract):
             with torch.no_grad():
                 got = contract.radial_contractions(*inputs[:4], dy, kind, inputs[4])
                 torch.cuda.synchronize()
-                rel, absolute = contraction_error(torch, contract, got, inputs, dy, kind, torch.float64)
+                rel, absolute, _ = contraction_error(torch, contract, got, inputs, dy, kind, torch.float64)
                 ms = time_ms(lambda: contract.radial_contractions(*inputs[:4], dy, kind, inputs[4]), 20)
             tol = CONTRACT_TOL[name]
             print(f"# kernel radial_contractions {kind:8s} {name} n={n} d={D} dy={dy}: "
@@ -284,20 +290,36 @@ def contraction_phase(torch, contract):
     with torch.no_grad():
         got = contract.radial_contractions(*inputs[:4], dy, "rbf")
         torch.cuda.synchronize()
-        rel, absolute = contraction_error(torch, contract, got, inputs, dy, "rbf", torch.float32)
+        rel, absolute, rels = contraction_error(torch, contract, got, inputs, dy, "rbf", torch.float32)
         del got
         torch.cuda.empty_cache()
-        ms = time_ms(lambda: contract.radial_contractions(*inputs[:4], dy, "rbf"), 10)
+        ms = time_ms(lambda: contract.radial_contractions(*inputs[:4], dy, "rbf"), 50)
         plain_ms = time_ms(lambda: contract.radial_contractions_plain(*inputs[:4], dy, "rbf"), 2)
     bound, bound_by = contract_bound_ms(N, D, dy, "float32", 4)
     tol = CONTRACT_TOL["float32"]
     print(f"# kernel radial_contractions rbf float32 n={N} d={D} dy={dy}: max |kernel-plain|/scale "
-          f"= {rel:.3e} (tol {tol:.0e}), max abs {absolute:.3e}, kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})", flush=True)
+          f"= {rel:.3e} (tol {tol:.0e}; svar, rowsum, MX: {rels[0]:.3e}, {rels[1]:.3e}, {rels[2]:.3e}), "
+          f"max abs {absolute:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+          f"({bound_by})", flush=True)
     check(rel <= tol, f"radial_contractions rbf float32 n={N}: {rel} > {tol}")
     rows.insert(0, {"case": "rbf", "dtype": "float32", "n": N, "max_rel_err": rel,
                     "max_abs_err": absolute, "tol": tol, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound, "bound_by": bound_by})
+
+    # All five kinds at the training shape, the kernel alone (windows of
+    # 30 launches, ~60 ms: shorter ones after host work read the card's
+    # clock still ramping up, up to 25 % slow), against the read bound:
+    # at d = 8, dy = 1 every kind's operations take less time than its bytes.
+    gbytes = contract_bytes(N, D, dy, 4) / 1e9
+    kbound, kby = bound_ms(contract_bytes(N, D, dy, 4), 0, "float32")
+    for kind in KINDS:
+        with torch.no_grad():
+            kms = time_ms(lambda: contract.radial_contractions(*inputs[:4], dy, kind, inputs[4]), 30)
+        print(f"# kernel radial_contractions {kind:8s} float32 n={N} d={D} dy={dy}: kernel {kms:.4f} ms, "
+              f"{1e3 * gbytes / kms:.1f} GB/s, {100 * kbound / kms:.1f} % of the {kbound:.4f} ms bound ({kby})",
+              flush=True)
+        rows.append({"case": kind, "dtype": "float32", "n": N, "ms": kms, "gb_per_s": 1e3 * gbytes / kms,
+                     "bound_ms": kbound, "bound_by": kby})
     del inputs
     torch.cuda.empty_cache()
     return rows

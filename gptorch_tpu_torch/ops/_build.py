@@ -22,6 +22,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
+    "--split-compile=0",  # optimise the kernels of one source in parallel, on every core
 )
 
 _libraries: dict = {}

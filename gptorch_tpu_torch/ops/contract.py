@@ -10,10 +10,15 @@ r² = ‖x̃ᵢ − x̃ⱼ‖² (:mod:`~gptorch_tpu_torch.ops.gpr_fast`):
 :func:`radial_contractions` replaces ``gptorch_tpu/ops/gpr_fast.py``
 ``_contractions`` (gpr_fast.py:300-367), which XLA fuses on the TPU.  On a
 CUDA tensor it launches ``csrc/radial_contract.cu`` (see the note at its
-top): K⁻¹ is read once and none of G, E, W or W ⊙ E is stored; the scalar
-sums are reduced in float64 without atomics, so a gradient is the same from
-run to run.  It is bound by the read of K⁻¹: 4.29 GB at n = 32768 in
-float32, about 1.28 ms at the H100's 3.35 TB/s.  On a CPU tensor it computes
+top): one 256-thread block per strip of rows streams the strip's K⁻¹ once
+through a ring of shared-memory stages filled by ``cp.async``, and each
+thread computes a register micro-tile of rows × 16 bytes of columns per
+stage.  None of G, E, W or W ⊙ E is stored, and the scalar sums are reduced
+per strip in float64 without atomics, so a gradient is the same from run to
+run.  Two limits of about the same size bound it on an H100: the read of
+K⁻¹ (4.29 GB at n = 32768 in float32, 1.28 ms at 3.35 TB/s) and the issue
+rate of the pair arithmetic (about 29 float32 instructions a pair at d = 8,
+about 0.95 ms).  On a CPU tensor it computes
 :func:`radial_contractions_plain`, which is also the reference the kernel is
 tested against.
 """
@@ -100,8 +105,8 @@ def _kernel_library():
     for fn in (lib.radial_contract_max_d, lib.radial_contract_max_dy):
         fn.argtypes = []
         fn.restype = i32
-    lib.radial_contract_num_blocks.argtypes = [i32, i32]
-    lib.radial_contract_num_blocks.restype = i32
+    lib.radial_contract_workspace_bytes.argtypes = [i32, i32, i32, i32]
+    lib.radial_contract_workspace_bytes.restype = ctypes.c_int64
     lib.radial_contract_error_string.argtypes = [i32]
     lib.radial_contract_error_string.restype = ctypes.c_char_p
     return lib
@@ -147,12 +152,13 @@ def radial_contractions(Kinv, A, xs, log_var, dy, kind, log_extra=None):
     else:
         alpha = var.new_ones(())
     scal = torch.stack([var, alpha])
-    part = torch.empty((2 * lib.radial_contract_num_blocks(n, d),), dtype=torch.float64, device=xs.device)
+    work = torch.empty((lib.radial_contract_workspace_bytes(n, d, dy, xs.element_size()),),
+                       dtype=torch.uint8, device=xs.device)
     fn = lib.radial_contract_f32 if xs.dtype == torch.float32 else lib.radial_contract_f64
     with torch.cuda.device(xs.device):
         code = fn(
             Kinv.data_ptr(), A.data_ptr(), xs.data_ptr(), scal.data_ptr(), rowsum.data_ptr(),
-            mx.data_ptr(), part.data_ptr(), out.data_ptr(), n, d, dy, KINDS.index(kind),
+            mx.data_ptr(), work.data_ptr(), out.data_ptr(), n, d, dy, KINDS.index(kind),
             torch.cuda.current_stream().cuda_stream,
         )
     if code != 0:

@@ -8,6 +8,7 @@ has only PyTorch; there, skip the JAX-configuring tests/conftest.py:
 """
 
 import contextlib
+import math
 
 import numpy as np
 import pytest
@@ -77,9 +78,14 @@ def test_kernel_backward_matches_plain(cuda, sym):
         torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10)
 
 
-def _contraction_inputs(n, d, dy, dtype, seed=0):
+def _contraction_inputs(n, d, dy, dtype, seed=0, far=False):
+    """K⁻¹, A, x̃, log σ² and log α.  ``far`` spreads x̃ six times wider and
+    takes α = 0.02, so r² runs from 0 to the hundreds and rq's
+    u = 1 + r²/2α to the tens of thousands: the range where the float32
+    kernel's approximate log2, reciprocal and square root are furthest from
+    IEEE's."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    xs = torch.randn(n, d, generator=g, device="cuda", dtype=dtype)
+    xs = torch.randn(n, d, generator=g, device="cuda", dtype=dtype) * (6.0 if far else 1.0)
     # A duplicate point, so matern12's E mask is hit off the diagonal.  Its
     # coordinates are multiples of 1/4: the plain twin's norm identity is then
     # exact for the pair (any rounding would leave r² = ±eps, which E = G/r
@@ -89,7 +95,7 @@ def _contraction_inputs(n, d, dy, dtype, seed=0):
     Kinv = M @ M.T + torch.eye(n, device="cuda", dtype=dtype)
     A = torch.randn(n, dy, generator=g, device="cuda", dtype=dtype)
     log_var = torch.tensor(0.2, device="cuda", dtype=dtype)
-    log_extra = torch.tensor([-0.5], device="cuda", dtype=dtype)
+    log_extra = torch.tensor([math.log(0.02) if far else -0.5], device="cuda", dtype=dtype)
     return Kinv, A, xs, log_var, log_extra
 
 
@@ -108,9 +114,21 @@ CONTRACT_TOL = {torch.float32: 2e-5, torch.float64: 1e-10}
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kind", contract.KINDS)
-@pytest.mark.parametrize("n, d, dy", [(1000, 3, 2), (257, 8, 1), (130, 13, 3), (70, 20, 1)])
-def test_contraction_kernel_matches_plain(cuda, dtype, kind, n, d, dy):
-    Kinv, A, xs, log_var, log_extra = _contraction_inputs(n, d, dy, dtype)
+# The kernel's stage is C = 128 columns in float32 and 64 in float64, its
+# strip 32, 16 or 8 rows by type and width; rows of K⁻¹ go by 16-byte copies
+# only when n·itemsize % 16 == 0.  The cases put n at C − 1, C, C + 1 and
+# 2C + 1 of both types (63, 64, 65, 127, 128, 129, 257; all but 64 and 128
+# misaligned in float32, the odd ones in float64), below one strip (1, 5),
+# and cover d ∈ {1, 8, 9, 16, 17, 32} and dy ∈ {1, 2, 32}.  The last case
+# holds the approximate float32 maps to the tolerance at far pairs and a
+# small α (see _contraction_inputs).
+@pytest.mark.parametrize("n, d, dy, far", [
+    (1000, 3, 2, False), (257, 8, 1, False), (130, 13, 3, False), (70, 20, 1, False),
+    (1, 8, 1, False), (5, 32, 32, False), (63, 16, 2, False), (64, 1, 1, False), (65, 9, 32, False),
+    (127, 8, 1, False), (128, 17, 2, False), (129, 32, 1, False), (300, 8, 1, True),
+])
+def test_contraction_kernel_matches_plain(cuda, dtype, kind, n, d, dy, far):
+    Kinv, A, xs, log_var, log_extra = _contraction_inputs(n, d, dy, dtype, far=far)
     before = contract.radial_contractions.launches
     got = contract.radial_contractions(Kinv, A, xs, log_var, dy, kind, log_extra)
     torch.cuda.synchronize()
@@ -124,8 +142,9 @@ def test_contraction_kernel_matches_plain(cuda, dtype, kind, n, d, dy):
         assert bool((err <= CONTRACT_TOL[dtype] * s + 1e-30).all()), (name, float(err.max()))
 
 
-def test_contraction_kernel_is_deterministic(cuda):
-    inputs = _contraction_inputs(1500, 8, 1, torch.float32)
+@pytest.mark.parametrize("n", [1500, 20000])  # 20000: 625 strips, more than the resident blocks
+def test_contraction_kernel_is_deterministic(cuda, n):
+    inputs = _contraction_inputs(n, 8, 1, torch.float32)
     first = contract.radial_contractions(*inputs[:4], 1, "rbf")
     second = contract.radial_contractions(*inputs[:4], 1, "rbf")
     for a, b in zip(first, second):
