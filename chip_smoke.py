@@ -9,8 +9,10 @@
    with its time (CUDA events, warm), the plain version's time and the least
    time the card could take (bytes over 3.35 TB/s or operations over the
    peak rate, whichever is larger).
-   - K1 ``rbf_gram``: the serving and training shapes in float32 and
-     float64, and its backward against autograd through the plain twin.
+   - K1 ``rbf_gram``: the exact-GP serving and training shapes (d = 8)
+     and the sparse paths' (d = 9: Kuu 1024², Kuf 1024 × 4096, Kus
+     1024 × 256, ragged 1000 × 4000) in float32 and float64, and its
+     backward against autograd through the plain twin.
    - K2 ``radial_contractions``: the five radial kinds in float32 and
      float64 at n = 4096, and rbf in float32 at the training shape
      n = 32768; then the five kinds timed at n = 32768 in float32, each
@@ -29,6 +31,23 @@
    gradient in float32 against the same computation in float64 at
    n = 32768; and at n = 4096 in float64 the card's route against the CPU's
    on the fused radial, generic and kernel-general paths.
+
+5. Sparse training (main path 3): bench_svgp.py's configuration, SVGP at
+   n = 45730, d = 9, m = 1024, batch 4096, Rbf-ARD, Gaussian(), jitter
+   1e-6, fixed jitter policy, float32, through ``model.fit_scan("Adam",
+   max_iter=50, learning_rate=1e-2, generator=...)``: one warm call, one
+   timed call (ms/step, steps/s, CUDA-event span), the device's busy time
+   per step from ``torch.profiler`` and the idle share, stage times of one
+   value-and-grad.  Checks: finite losses whose last 10 average below the
+   first 10; the full-batch ELBO and gradient in float32 against float64 on
+   the card; and at n = 4096, m = 256 in float64 the card's route against
+   the CPU's for SVGP (both parameterizations), VFE, FITC and one natural-
+   gradient step.
+6. Sparse serving (main paths 4 and 5): a VFE on all n = 45730 points
+   (sharing the trained SVGP's kernel, likelihood and inducing inputs) and
+   the trained SVGP, each through posterior() -> for_serving() -> 8 batches
+   of 256, serving against the triangular-solve posterior; and one VFE
+   value-and-grad at full n.
 
 Before each main path runs, every kernel's launch counter is set to 0; it is
 read just after, and each kernel of the path must have launched.  Any failed
@@ -76,6 +95,10 @@ KINDS = ("rbf", "matern12", "matern32", "matern52", "rq")
 # charged to the kernel.
 CONTRACT_TOL = {"float32": 2e-5, "float64": 1e-10}
 F32_UNIT_ROUNDOFF = 2.0 ** -24
+# The sparse paths: bench_svgp.py:21-60's configuration (UCI-protein scale).
+SP_N, SP_D, SP_M, SP_BATCH = 45730, 9, 1024, 4096
+SP_STEPS, SP_LR, SP_JITTER = 50, 1e-2, 1e-6
+SP_PROFILED_STEPS = 10
 
 
 class CheckFailed(Exception):
@@ -156,22 +179,29 @@ def dtype_name(dtype):
 
 
 def gram_phase(torch, gram):
+    # (label, n1, n2, symmetric, d, noise on the diagonal): the exact-GP
+    # shapes, then the sparse paths' at d = 9 (Kuu symmetric with no added
+    # diagonal, Kuf of one batch, Kus of one query batch, a ragged pair)
     cases = [
-        ("sym+diag", N, N, True),
-        ("cross", N, Q, False),
-        ("cross", Q, N, False),
-        ("ragged", 4099, 1031, False),
+        ("sym+diag", N, N, True, D, True),
+        ("cross", N, Q, False, D, False),
+        ("cross", Q, N, False, D, False),
+        ("ragged", 4099, 1031, False, D, False),
+        ("Kuu sym", SP_M, SP_M, True, SP_D, False),
+        ("Kuf", SP_M, SP_BATCH, False, SP_D, False),
+        ("Kus", SP_M, Q, False, SP_D, False),
+        ("ragged", 1000, 4000, False, SP_D, False),
     ]
     rows = []
     for dtype in (torch.float32, torch.float64):
         name = dtype_name(dtype)
         gen = torch.Generator(device="cuda").manual_seed(1234)
-        for label, n1, n2, sym in cases:
-            ell = torch.rand(D, generator=gen, device="cuda", dtype=dtype) + 0.5
-            x1 = (torch.randn(n1, D, generator=gen, device="cuda", dtype=dtype) / ell).contiguous()
-            x2 = None if sym else (torch.randn(n2, D, generator=gen, device="cuda", dtype=dtype) / ell).contiguous()
+        for label, n1, n2, sym, d, noise in cases:
+            ell = torch.rand(d, generator=gen, device="cuda", dtype=dtype) + 0.5
+            x1 = (torch.randn(n1, d, generator=gen, device="cuda", dtype=dtype) / ell).contiguous()
+            x2 = None if sym else (torch.randn(n2, d, generator=gen, device="cuda", dtype=dtype) / ell).contiguous()
             var = torch.full((), 1.3, device="cuda", dtype=dtype)
-            diag = torch.full((), 0.1, device="cuda", dtype=dtype) if sym else None
+            diag = torch.full((), 0.1, device="cuda", dtype=dtype) if noise else None
             with torch.no_grad():
                 k = gram.rbf_gram(x1, x2, var=var, diag=diag)
                 torch.cuda.synchronize()
@@ -182,14 +212,14 @@ def gram_phase(torch, gram):
                 ms = time_ms(lambda: gram.rbf_gram(x1, x2, var=var, diag=diag), 10 if big else 50)
                 plain_ms = time_ms(lambda: gram.rbf_gram_plain(x1, x2, var, diag), 3 if big else 20)
             torch.cuda.empty_cache()
-            bound, bound_by = gram_bound_ms(n1, n2, D, sym, name, x1.element_size())
+            bound, bound_by = gram_bound_ms(n1, n2, d, sym, name, x1.element_size())
             tol = TOL[name] * 1.3
             row = {
-                "case": label, "dtype": name, "n1": n1, "n2": n2, "d": D,
+                "case": label, "dtype": name, "n1": n1, "n2": n2, "d": d,
                 "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": bound_by,
             }
-            print(f"# kernel rbf_gram {label:8s} {name} ({n1}, {n2}) d={D}: "
+            print(f"# kernel rbf_gram {label:8s} {name} ({n1}, {n2}) d={d}: "
                   f"max|kernel-plain|={err:.3e} (tol {tol:.1e}) kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})", flush=True)
             check(err <= tol, f"rbf_gram {label} {name} ({n1},{n2}) error {err} > {tol}")
@@ -678,6 +708,337 @@ def card_vs_cpu(torch, gram, contract):
     return out
 
 
+def sparse_data(n, d, m, dtype, seed=0):
+    """bench_svgp.py's data: x ~ N(0, I), y = sin(x₀) + 0.1·noise, and the
+    inducing inputs x[perm[:m]] from the same RandomState stream."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, d).astype(dtype)
+    y = (np.sin(x[:, :1]) + 0.1 * rng.randn(n, 1)).astype(dtype)
+    return x, y, x[rng.permutation(n)[:m]]
+
+
+def device_busy_ms(torch, fn):
+    """(wall ms, device-busy ms, {activity name: ms}) of ``fn()`` under
+    ``torch.profiler``.  Busy time is the union of the intervals of every
+    kernel, copy and set the card ran; the profiler's device-side ranges of
+    user annotations (``Optimizer.step#Adam.step``, which span kernels and
+    the gaps between them) are left out.  Raises CheckFailed if the trace
+    holds no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    by_name, spans = {}, []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            spans.append((e.time_range.start, e.time_range.end))
+    busy_us, reach = 0.0, -math.inf
+    for start, end in sorted(spans):
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    check(busy_us > 0, "torch.profiler recorded no device activity")
+    return wall, busy_us / 1e3, by_name
+
+
+def svgp_training_phase(torch, gram, contract):
+    """bench_svgp.py's leg through the port: SVGP(n = 45730, d = 9,
+    m = 1024, batch 4096, Rbf-ARD, Gaussian(), jitter 1e-6, fixed jitter
+    policy, float32), ``fit_scan`` Adam lr 1e-2, 50 steps a call, one warm
+    call and one timed call, with a generator on the card."""
+    from gptorch_tpu_torch import kernels, settings
+    from gptorch_tpu_torch.models import SVGP
+
+    x, y, z = sparse_data(SP_N, SP_D, SP_M, np.float32)
+    out = {"n": SP_N, "d": SP_D, "m": SP_M, "batch": SP_BATCH, "dtype": "float32", "steps": SP_STEPS,
+           "lr": SP_LR}
+    with settings.override(jitter_policy="fixed"):
+        t0 = time.perf_counter()
+        model = SVGP(x, y, kernels.Rbf(SP_D, ARD=True), inducing_points=z, batch_size=SP_BATCH,
+                     jitter=SP_JITTER)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        check(model.device.type == "cuda", "SVGP did not land on the card")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t0 = time.perf_counter()
+        warm = model.fit_scan("Adam", max_iter=SP_STEPS, learning_rate=SP_LR, generator=gen)
+        torch.cuda.synchronize()
+        out["warm_call_s"] = time.perf_counter() - t0
+
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(gram, contract)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        losses = model.fit_scan("Adam", max_iter=SP_STEPS, learning_rate=SP_LR, generator=gen)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["launches"] = read_counts(gram, contract)
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["step_ms"] = 1e3 * wall / SP_STEPS
+        out["steps_per_s"] = SP_STEPS / wall
+        out["event_span_ms_per_step"] = start.elapsed_time(end) / SP_STEPS
+        out["losses"] = [float(v) for v in torch.cat([warm, losses]).cpu()]
+
+        # device activity of a short window of the same loop
+        prof_wall, busy, by_name = device_busy_ms(
+            torch, lambda: model.fit_scan("Adam", max_iter=SP_PROFILED_STEPS, learning_rate=SP_LR, generator=gen))
+        out["profiled_wall_ms_per_step"] = prof_wall / SP_PROFILED_STEPS
+        out["device_ms_per_step"] = busy / SP_PROFILED_STEPS
+        out["idle_share"] = 1.0 - out["device_ms_per_step"] / out["step_ms"]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        out["device_ms_per_step_by_kernel"] = {k: v / SP_PROFILED_STEPS for k, v in top}
+        for k, v in top:
+            print(f"# svgp device time per step {v / SP_PROFILED_STEPS:.4f} ms ({100 * v / busy:.1f} % of busy): "
+                  f"{k[:110]}", flush=True)
+        k1 = sum(v for k, v in by_name.items() if "rbf_gram" in k) / SP_PROFILED_STEPS
+        out["rbf_gram_device_ms_per_step"] = k1
+        print(f"# svgp device time per step in rbf_gram's kernel (K1): {k1:.4f} ms "
+              f"({100 * k1 / out['device_ms_per_step']:.2f} % of busy)", flush=True)
+        print(f"# svgp training n={SP_N} d={SP_D} m={SP_M} batch={SP_BATCH} f32 fit_scan Adam lr={SP_LR}: "
+              f"build {out['build_s']:.3f} s, warm call of {SP_STEPS} steps {out['warm_call_s']:.3f} s; timed "
+              f"call {out['step_ms']:.4f} ms/step, {out['steps_per_s']:.2f} steps/s, CUDA-event span "
+              f"{out['event_span_ms_per_step']:.4f} ms/step; device busy {out['device_ms_per_step']:.4f} ms/step "
+              f"(torch.profiler, {SP_PROFILED_STEPS} steps, {out['profiled_wall_ms_per_step']:.4f} ms/step "
+              f"profiled), idle share {out['idle_share']:.3f}; launches {out['launches']}, peak device memory "
+              f"{out['peak_mem_gb']:.3f} GB", flush=True)
+        check(out["launches"]["rbf_gram"] > 0, "the SVGP training path never launched rbf_gram")
+        first, last = out["losses"][:10], out["losses"][-10:]
+        print(f"# svgp losses: first 10 mean {np.mean(first):.6f}, last 10 mean {np.mean(last):.6f}; "
+              f"{out['losses'][:3]} ... {out['losses'][-3:]}", flush=True)
+        check(all(math.isfinite(v) for v in out["losses"]), "non-finite SVGP training loss")
+        check(np.mean(last) < np.mean(first), "SVGP training did not lower the loss")
+        out["stages_ms"] = svgp_stages(torch, model)
+        out["f32_vs_f64"] = svgp_full_batch_agreement(torch, model)
+    return model, out
+
+
+def svgp_stages(torch, model):
+    """Warm CUDA-event times of one SVGP value-and-grad on a batch of 4096
+    and of its forward stages, at the trained values (after the main run's
+    counts were read), each beside its bound: bytes each stage must move
+    (float32, a triangular operand's triangle) or its operations (m³/3 for
+    the Cholesky, m²·k for a triangular solve with k right-hand sides,
+    2·m²·k for a product), whichever takes longer.  The forward's bound is
+    the sum of its stages'; the value-and-grad's three times that, since
+    the backward of a solve or a product is two of the same size and the
+    Gram's and the factor's backward at least twice theirs."""
+    from gptorch_tpu_torch.functions import cholesky, trtrs
+    from gptorch_tpu_torch.models.sparse_gpr import draw_minibatch
+
+    m, b, d = SP_M, SP_BATCH, SP_D
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def value_and_grad():
+        model.zero_grad(set_to_none=True)
+        model._loss(generator=gen).backward()
+
+    vg_ms = time_ms(value_and_grad, 20)
+    fwd_ms = time_ms(lambda: model._loss(generator=gen), 20)
+    model.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        z = model.Z.value
+        xb, yb = draw_minibatch(gen, model.X, model.Y, b)
+        Kuu = model._kuu(z)
+        L = cholesky(Kuu)
+        Kuf = model.kernel.K(z, xb)
+        alpha = trtrs(Kuf, L)
+        beta = trtrs(model.induced_output_chol_cov.value, L)
+        tri = m * m / 2
+        stages = {
+            "draw_minibatch (randperm + gather)": (
+                lambda: draw_minibatch(gen, model.X, model.Y, b), bound_ms((b * (d + 1) * 2) * 4 + b * 8, 0,
+                                                                           "float32")),
+            "Kuu = K(Z) (rbf_gram, symmetric)": (lambda: model._kuu(z), gram_bound_ms(m, m, d, True, "float32", 4)),
+            "cholesky(Kuu) (fixed jitter)": (lambda: cholesky(Kuu), bound_ms(2 * tri * 4, m ** 3 / 3, "float32")),
+            "Kuf = K(Z, xb) (rbf_gram, cross)": (lambda: model.kernel.K(z, xb),
+                                                 gram_bound_ms(m, b, d, False, "float32", 4)),
+            "alpha = L^-1 Kuf (trsm)": (lambda: trtrs(Kuf, L), bound_ms((tri + 2 * m * b) * 4, m * m * b, "float32")),
+            "beta = L^-1 Lq (trsm)": (lambda: trtrs(model.induced_output_chol_cov.value, L),
+                                      bound_ms((3 * m * m) * 4, m ** 3, "float32")),
+            "gamma = beta^T alpha (gemm)": (lambda: beta.T @ alpha,
+                                            bound_ms((m * m + 2 * m * b) * 4, 2 * m * m * b, "float32")),
+        }
+        times = {name: (time_ms(fn, 20), *bound) for name, (fn, bound) in stages.items()}
+        del Kuu, L, Kuf, alpha, beta
+    fwd_bound = sum(bound for _, bound, _ in times.values())
+    times = {"value_and_grad (loss + backward)": (vg_ms, 3 * fwd_bound,
+                                                  "3 x the forward's: each stage's backward does twice its work"),
+             "forward (loss)": (fwd_ms, fwd_bound, "sum of the stages below"), **times}
+    for name, (ms, bound, by) in times.items():
+        print(f"# svgp stage {name}: {ms:.4f} ms (bound {bound:.4f} ms, {by})", flush=True)
+    return times
+
+
+def svgp_full_batch_agreement(torch, model):
+    """The full-batch ELBO (n = 45730) and its gradient in float32 against the
+    same computation in float64 on the card, at the trained values.
+    Tolerance 4·u·√κ·√n (u the float32 unit roundoff, κ the condition
+    number of Kuu + jitter from float64 eigenvalues, n the data): the ELBO
+    reaches Kuu only through its Cholesky factor L (solves L⁻¹Kuf, L⁻¹L_q,
+    L⁻¹m and log|L|), whose condition number is √κ, so those carry relative
+    errors of a few u·√κ; the ELBO and its gradient sum n such terms, whose
+    rounding errors grow like √n when they behave as random."""
+    from gptorch_tpu_torch.module import get_trainable
+
+    results = {}
+    for dtype in (torch.float32, torch.float64):
+        model.to(dtype)
+        model.zero_grad(set_to_none=True)
+        loss = model.loss(x=model.X, y=model.Y)
+        loss.backward()
+        raws = get_trainable(model)
+        results[dtype] = (float(loss.detach()), np.concatenate([raws[k].grad.double().cpu().numpy().ravel()
+                                                                for k in sorted(raws)]))
+        del loss
+        if dtype == torch.float64:
+            with torch.no_grad():
+                eig = torch.linalg.eigvalsh(model._kuu(model.Z.value))
+                kappa = float(eig[-1] / eig[0])
+    model.zero_grad(set_to_none=True)
+    model.to(torch.float32)
+    torch.cuda.empty_cache()
+    tol = 4 * F32_UNIT_ROUNDOFF * math.sqrt(kappa) * math.sqrt(SP_N)
+    (v32, g32), (v64, g64) = results[torch.float32], results[torch.float64]
+    value_rel = abs(v32 - v64) / abs(v64)
+    grad_rel = float(np.abs(g32 - g64).max() / np.abs(g64).max())
+    print(f"# svgp full-batch f32 vs f64 at n={SP_N}: -ELBO {v32!r} vs {v64!r} (rel {value_rel:.3e}); gradient "
+          f"max|g32-g64|/max|g64| = {grad_rel:.3e}; kappa(Kuu) = {kappa:.1f}, tol 4*u*sqrt(kappa*n) = {tol:.3e}",
+          flush=True)
+    check(value_rel <= tol, f"svgp f32 vs f64 ELBO {value_rel} > {tol}")
+    check(grad_rel <= tol, f"svgp f32 vs f64 gradient {grad_rel} > {tol}")
+    return {"elbo_f32": v32, "elbo_f64": v64, "value_rel": value_rel, "grad_rel": grad_rel, "kappa": kappa,
+            "tol": tol}
+
+
+def sparse_serving_phase(torch, gram, contract, svgp, kind):
+    """``posterior()`` -> ``for_serving()`` -> 8 batches of 256 queries for
+    the trained SVGP, or (``kind="vfe"``) a VFE on all n = 45730 points
+    sharing its kernel, likelihood and inducing inputs; the serving moments
+    against the triangular-solve posterior's.  For VFE, also one warm
+    value-and-grad of the collapsed bound at full n."""
+    from gptorch_tpu_torch import settings
+    from gptorch_tpu_torch.models import VFE
+
+    _, _, xq = make_data(SP_N, SP_D, np.float32, seed=3)
+    out = {"kind": kind, "n": SP_N, "m": SP_M, "q": Q, "batches": BATCHES}
+    with settings.override(jitter_policy="fixed"):
+        if kind == "vfe":
+            model = VFE(svgp.X, svgp.Y, svgp.kernel, inducing_points=svgp.Z.value.detach(),
+                        likelihood=svgp.likelihood, jitter=SP_JITTER)
+        else:
+            model = svgp
+        torch.cuda.synchronize()
+        zero_counts(gram, contract)
+        t0 = time.perf_counter()
+        post = model.posterior()
+        torch.cuda.synchronize()
+        out["factorize_ms"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        serving = post.for_serving()
+        torch.cuda.synchronize()
+        out["convert_ms"] = 1e3 * (time.perf_counter() - t0)
+        predict_ms, means, variances = [], [], []
+        for xb in xq:
+            t0 = time.perf_counter()
+            mu, var = serving.predict_f(xb)
+            predict_ms.append(1e3 * (time.perf_counter() - t0))
+            means.append(mu), variances.append(var)
+        out["launches"] = read_counts(gram, contract)
+        out["predict_f_ms"] = predict_ms
+        check(out["launches"]["rbf_gram"] > 0, f"the {kind} serving path never launched rbf_gram")
+        mu, var = np.concatenate(means), np.concatenate(variances)
+        check(np.isfinite(mu).all() and np.isfinite(var).all(), f"non-finite {kind} serving output")
+        check(mu.shape == (Q * BATCHES, 1) and var.shape == mu.shape, f"wrong {kind} serving output shape")
+        ref = [post.predict_f(xb) for xb in xq]
+        ref_mu, ref_var = np.concatenate([r[0] for r in ref]), np.concatenate([r[1] for r in ref])
+        out["serving_vs_trtrs"] = {"mean_max_abs": float(np.abs(mu - ref_mu).max()),
+                                   "var_max_abs": float(np.abs(var - ref_var).max()), "tol": SERVING_TOL}
+        out["trtrs_predict_f_ms"] = time_ms(lambda: post.predict_f(xq[0]), 20)
+        out["serving_predict_f_warm_ms"] = time_ms(lambda: serving.predict_f(xq[0]), 20)
+        if kind == "vfe":
+            def value_and_grad():
+                model.zero_grad(set_to_none=True)
+                model._loss().backward()
+
+            out["vfe_value_and_grad_ms"] = time_ms(value_and_grad, 5)
+            model.zero_grad(set_to_none=True)
+    agree = out["serving_vs_trtrs"]
+    extra = (f", VFE value-and-grad at n={SP_N} {out['vfe_value_and_grad_ms']:.3f} ms" if kind == "vfe" else "")
+    print(f"# {kind} serving n={SP_N} m={SP_M} f32: factorize {out['factorize_ms']:.3f} ms, convert "
+          f"{out['convert_ms']:.3f} ms, predict_f per batch of {Q} median {np.median(predict_ms):.4f} ms "
+          f"(warm, CUDA events: serving {out['serving_predict_f_warm_ms']:.4f} ms, trtrs posterior "
+          f"{out['trtrs_predict_f_ms']:.4f} ms), launches {out['launches']}; serving vs trtrs max abs: mean "
+          f"{agree['mean_max_abs']:.3e}, var {agree['var_max_abs']:.3e} (tol {SERVING_TOL}){extra}", flush=True)
+    for key in ("mean_max_abs", "var_max_abs"):
+        check(agree[key] <= SERVING_TOL, f"{kind} serving vs trtrs {key} {agree[key]} > {SERVING_TOL}")
+    return out
+
+
+def sparse_card_vs_cpu(torch, gram, contract):
+    """n = 4096, m = 256 in float64: SVGP in both parameterizations (loss and
+    gradient on one explicit batch of 1024), VFE and FITC (full data), and
+    one natural-gradient step, on the card against the CPU's plain route,
+    to 1e-8 relative (gradients and parameters relative to their largest
+    entry)."""
+    from gptorch_tpu_torch import kernels, likelihoods, settings
+    from gptorch_tpu_torch.models import FITC, SVGP, VFE
+    from gptorch_tpu_torch.module import get_trainable
+    from gptorch_tpu_torch.training import natgrad
+
+    n, m, b = 4096, 256, 1024
+    x, y, z = sparse_data(n, SP_D, m, np.float64, seed=4)
+    ell = np.linspace(0.8, 1.6, SP_D)
+    common = dict(inducing_points=z, jitter=SP_JITTER)
+    makers = {
+        "svgp": lambda dev: SVGP(x, y, kernels.Rbf(SP_D, ARD=True, length_scales=ell), device=dev, **common),
+        "svgp whitened": lambda dev: SVGP(x, y, kernels.Rbf(SP_D, ARD=True, length_scales=ell), whiten=True,
+                                          device=dev, **common),
+        "vfe": lambda dev: VFE(x, y, kernels.Rbf(SP_D, ARD=True, length_scales=ell),
+                               likelihood=likelihoods.Gaussian(0.1), device=dev, **common),
+        "fitc": lambda dev: FITC(x, y, kernels.Rbf(SP_D, ARD=True, length_scales=ell),
+                                 likelihood=likelihoods.Gaussian(0.1), device=dev, **common),
+    }
+    out = {}
+    with default_dtype(torch, torch.float64), settings.override(jitter_policy="fixed"):
+        for name, make in {**makers, "natgrad step (svgp)": makers["svgp"]}.items():
+            res = {}
+            for device in ("cuda", "cpu"):
+                model = make(device)
+                zero_counts(gram, contract)
+                raws = get_trainable(model)
+                if name.startswith("natgrad"):
+                    step, _ = natgrad.make_natgrad_step(model, nat_lr=0.5)
+                    value = float(step())
+                    vec = np.concatenate([raws[k].detach().cpu().numpy().ravel() for k in sorted(raws)])
+                else:
+                    batch = (model.X[:b], model.Y[:b]) if name.startswith("svgp") else (None, None)
+                    loss = model.loss(*batch)
+                    loss.backward()
+                    value = float(loss.detach())
+                    vec = np.concatenate([raws[k].grad.cpu().numpy().ravel() for k in sorted(raws)])
+                res[device] = (value, vec, read_counts(gram, contract))
+                del model, raws
+            value_rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+            vec_rel = float(np.abs(res["cuda"][1] - res["cpu"][1]).max() / np.abs(res["cpu"][1]).max())
+            what = "parameters after the step" if name.startswith("natgrad") else "gradient"
+            print(f"# sparse f64 card vs CPU n={n} m={m} {name}: loss rel {value_rel:.3e}, {what} rel "
+                  f"{vec_rel:.3e} (tol {F64_REL_TOL}), card launches {res['cuda'][2]}", flush=True)
+            check(res["cuda"][2]["rbf_gram"] >= 2, f"{name}: the card route launched rbf_gram {res['cuda'][2]}")
+            check(res["cpu"][2] == {"rbf_gram": 0, "radial_contractions": 0}, f"{name}: the CPU launched")
+            check(value_rel <= F64_REL_TOL, f"{name}: loss card vs CPU {value_rel} > {F64_REL_TOL}")
+            check(vec_rel <= F64_REL_TOL, f"{name}: {what} card vs CPU {vec_rel} > {F64_REL_TOL}")
+            out[name] = {"value_rel": value_rel, "vec_rel": vec_rel, "launches": res["cuda"][2]}
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -688,7 +1049,7 @@ def main() -> int:
 
     card = card_line()
     print(card, flush=True)
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.build(["rbf_gram", "radial_contract"])
     gram._kernel_library()
     contract._kernel_library()
@@ -702,8 +1063,16 @@ def main() -> int:
     contract_rows = contraction_phase(torch, contract)
     serving = serving_phase(torch, gram, contract)
     training = training_phase(torch, gram, contract)
+    svgp, svgp_training = svgp_training_phase(torch, gram, contract)
+    vfe_serving = sparse_serving_phase(torch, gram, contract, svgp, "vfe")
+    svgp_serving = sparse_serving_phase(torch, gram, contract, svgp, "svgp")
+    del svgp
+    torch.cuda.empty_cache()
+    svgp_training["card_vs_cpu"] = sparse_card_vs_cpu(torch, gram, contract)
 
-    paths = {"serving": serving["launches"], "training": training["launches"]}
+    paths = {"serving": serving["launches"], "training": training["launches"],
+             "svgp_training": svgp_training["launches"], "vfe_serving": vfe_serving["launches"],
+             "svgp_serving": svgp_serving["launches"]}
     g, c = gram_rows[0], contract_rows[0]
     kernels_line = {"kernels": [
         {
@@ -741,7 +1110,8 @@ def main() -> int:
         },
     ]}
     print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, peak device memory: serving "
-          f"{serving['peak_mem_gb']:.1f} GB, training {training['peak_mem_gb']:.1f} GB", flush=True)
+          f"{serving['peak_mem_gb']:.1f} GB, training {training['peak_mem_gb']:.1f} GB, svgp training "
+          f"{svgp_training['peak_mem_gb']:.3f} GB; total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

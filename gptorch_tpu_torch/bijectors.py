@@ -72,6 +72,22 @@ class Softplus(Bijector):
         return torch.sum(F.logsigmoid(x))
 
 
+class LowerCholesky(Bijector):
+    """Map an unconstrained square matrix to a lower-triangular matrix with a
+    positive diagonal: ``tril(x, -1) + diag(exp(diag(x)))`` -- SVGP's
+    variational Cholesky factor (torch.distributions'
+    ``LowerCholeskyTransform``)."""
+
+    def forward(self, x):
+        return torch.tril(x, -1) + torch.diag_embed(torch.exp(torch.diagonal(x, dim1=-2, dim2=-1)))
+
+    def inverse(self, y):
+        return torch.tril(y, -1) + torch.diag_embed(torch.log(torch.diagonal(y, dim1=-2, dim2=-1)))
+
+    def forward_log_det_jacobian(self, x):
+        return torch.sum(torch.diagonal(x, dim1=-2, dim2=-1))
+
+
 class Shift(Bijector):
     """y = x + shift."""
 

@@ -1,5 +1,35 @@
 from .base import GPModel
 from .gpr import GPR
-from .posterior import GPRPosterior, Posterior, ServingGPRPosterior, gpr_posterior
+from .posterior import (
+    GPRPosterior,
+    LowRankPosterior,
+    Posterior,
+    ServingGPRPosterior,
+    ServingLowRankPosterior,
+    ServingSVGPPosterior,
+    SVGPPosterior,
+    fitc_posterior,
+    gpr_posterior,
+    svgp_posterior,
+    vfe_posterior,
+)
+from .sparse_gpr import FITC, SVGP, VFE
 
-__all__ = ["GPModel", "GPR", "GPRPosterior", "Posterior", "ServingGPRPosterior", "gpr_posterior"]
+__all__ = [
+    "FITC",
+    "GPModel",
+    "GPR",
+    "GPRPosterior",
+    "LowRankPosterior",
+    "Posterior",
+    "SVGP",
+    "SVGPPosterior",
+    "ServingGPRPosterior",
+    "ServingLowRankPosterior",
+    "ServingSVGPPosterior",
+    "VFE",
+    "fitc_posterior",
+    "gpr_posterior",
+    "svgp_posterior",
+    "vfe_posterior",
+]

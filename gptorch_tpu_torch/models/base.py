@@ -3,7 +3,9 @@
 Counterpart of ``gptorch_tpu/models/base.py``: data + kernel + likelihood +
 mean function on one explicit device, the default-noise heuristic, the loss,
 training (``optimize``/``fit_scan``, in place) and numpy-in/numpy-out
-prediction.
+prediction.  The JAX package's PRNG ``key`` arguments become
+``generator=`` (a ``torch.Generator`` on the model's device), which a
+minibatched model draws its batch from and every other model ignores.
 """
 
 from __future__ import annotations
@@ -25,14 +27,16 @@ from ..util import as_array
 def _coerce_io(predict_func):
     """numpy in -> numpy out; tensor in -> tensor out.
 
-    A numpy input is cast to the training inputs' dtype and device and run
-    under ``torch.no_grad()``: its numpy output carries no graph anyway."""
+    A numpy input is cast to the dtype and device of the training inputs
+    (a sparse posterior's inducing points) and run under
+    ``torch.no_grad()``: its numpy output carries no graph anyway."""
 
     @functools.wraps(predict_func)
     def predict(self, input_new, *args, **kwargs):
         if not isinstance(input_new, np.ndarray):
             return predict_func(self, input_new, *args, **kwargs)
-        input_new = as_array(input_new, dtype=self.X.dtype, device=self.X.device)
+        ref = self.X if hasattr(self, "X") else self.Z
+        input_new = as_array(input_new, dtype=ref.dtype, device=ref.device)
         with torch.no_grad():
             out = predict_func(self, input_new, *args, **kwargs)
         if isinstance(out, tuple):
@@ -97,6 +101,12 @@ class GPModel(Predictive):
             y = y[:, None]
         self.kernel = kernel
         self.likelihood = likelihood if likelihood is not None else GPModel._init_gaussian_likelihood(y)
+        if isinstance(self.likelihood, _likelihoods.FixedNoiseGaussian) and not self._supports_fixed_noise:
+            # every other model reads one scalar σ² and would drop the
+            # per-observation part silently
+            raise ValueError(
+                f"FixedNoiseGaussian is supported by the exact GPR only, not {type(self).__name__}"
+            )
         self.mean_function = (
             _means.as_mean_function(mean_function) if mean_function is not None else _means.Zero(y.shape[1])
         )
@@ -105,9 +115,25 @@ class GPModel(Predictive):
         self.name = name
         self.to(device)
 
+    #: Whether the model reads a :class:`~gptorch_tpu_torch.likelihoods.FixedNoiseGaussian`'s
+    #: per-observation noise (the exact GPR does).
+    _supports_fixed_noise = False
+
     @property
     def device(self) -> torch.device:
         return self.X.device
+
+    @property
+    def num_data(self) -> int:
+        return self.Y.shape[0]
+
+    @property
+    def input_dimension(self) -> int:
+        return self.X.shape[1]
+
+    @property
+    def output_dimension(self) -> int:
+        return self.Y.shape[1]
 
     @staticmethod
     def _init_gaussian_likelihood(y):
@@ -115,14 +141,14 @@ class GPModel(Predictive):
         variance (numpy's ddof=0, not torch's unbiased default)."""
         return _likelihoods.Gaussian(variance=float(0.001 * y.detach().cpu().numpy().var()))
 
-    def log_likelihood(self, x=None, y=None):
+    def log_likelihood(self, x=None, y=None, generator=None):
         raise NotImplementedError
 
-    def _loss(self, x=None, y=None):
+    def _loss(self, x=None, y=None, generator=None):
         """-(log_likelihood + log_prior)."""
-        return -(self.log_likelihood(x=x, y=y) + self.log_prior())
+        return -(self.log_likelihood(x=x, y=y, generator=generator) + self.log_prior())
 
-    def loss(self, x=None, y=None):
+    def loss(self, x=None, y=None, generator=None):
         """Public loss: X and Y must agree on the number of data, and a
         non-finite loss raises ``FloatingPointError``."""
         if x is not None or y is not None:
@@ -130,7 +156,7 @@ class GPModel(Predictive):
             ys = y if y is not None else self.Y
             if xs.shape[0] != ys.shape[0]:
                 raise ValueError("X and Y must have same # data.")
-        out = self._loss(x=x, y=y)
+        out = self._loss(x=x, y=y, generator=generator)
         if not bool(torch.isfinite(out)):
             raise _fit._nonfinite_loss_error()
         return out
@@ -141,6 +167,7 @@ class GPModel(Predictive):
         max_iter: int = 2000,
         verbose: bool = True,
         learning_rate: Optional[float] = None,
+        generator: Optional[torch.Generator] = None,
         callback=None,
     ):
         """Fit the hyperparameters by minimizing the loss, in place.
@@ -160,15 +187,23 @@ class GPModel(Predictive):
             print(f"{self.name}: Start optimizing via {method}")
         _, losses, wall = _fit.fit_torch(
             self, method=method, max_iter=max_iter, learning_rate=learning_rate,
-            verbose=verbose, callback=callback,
+            generator=generator, verbose=verbose, callback=callback,
         )
         if verbose:
             print(f"Optimization time taken: {wall} s")
             print(f"Optimization method: {method}")
         return losses, wall
 
-    def fit_scan(self, method: str = "Adam", max_iter: int = 2000, learning_rate: Optional[float] = None):
+    def fit_scan(
+        self,
+        method: str = "Adam",
+        max_iter: int = 2000,
+        learning_rate: Optional[float] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
         """Train in place with no host read per step
         (:func:`~gptorch_tpu_torch.training.fit.fit_scan`); returns the
         losses as a tensor on the model's device."""
-        return _fit.fit_scan(self, method=method, max_iter=max_iter, learning_rate=learning_rate)[1]
+        return _fit.fit_scan(
+            self, method=method, max_iter=max_iter, learning_rate=learning_rate, generator=generator
+        )[1]

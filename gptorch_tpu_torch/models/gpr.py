@@ -33,7 +33,7 @@ from .. import kernels as _k
 from .. import mean_functions as _m
 from ..bijectors import Exp
 from ..functions import add_diag, cholesky, lt_log_determinant, trtrs
-from ..likelihoods import Gaussian
+from ..likelihoods import FixedNoiseGaussian, Gaussian
 from ..ops.gpr_fast import radial_nlml
 from ..ops.gpr_general import general_nlml
 from .base import GPModel
@@ -57,6 +57,8 @@ class GPR(GPModel):
 
     :param device: see :class:`~gptorch_tpu_torch.models.base.GPModel`.
     """
+
+    _supports_fixed_noise = True  # the per-observation diagonal in _compute_kyy
 
     def __init__(
         self,
@@ -141,7 +143,9 @@ class GPR(GPModel):
             ok = isinstance(self.kernel.alpha.bijector, Exp)
         return ok
 
-    def log_likelihood(self, x=None, y=None):
+    def log_likelihood(self, x=None, y=None, generator=None):
+        """The log marginal likelihood; ``generator`` is accepted for the
+        common signature and unused (no minibatches)."""
         x = x if x is not None else self.X
         y = y if y is not None else self.Y
         if self._fast_eligible(x):
@@ -181,8 +185,12 @@ class GPR(GPModel):
 
     def _compute_kyy(self, x=None):
         """K(X,X) + σ²I.  For an Rbf kernel the noise rides in the Gram's
-        ``diag`` argument, which the card's kernel adds as it writes."""
+        ``diag`` argument, which the card's kernel adds as it writes; a
+        :class:`~gptorch_tpu_torch.likelihoods.FixedNoiseGaussian` adds its
+        per-observation diagonal."""
         x = x if x is not None else self.X
+        if isinstance(self.likelihood, FixedNoiseGaussian):
+            return add_diag(self.kernel.K(x), self.likelihood.noise_diag(x.shape[0]).to(x.dtype))
         noise = self.likelihood.variance.value.reshape(()).to(x.dtype)
         if type(self.kernel) is _k.Rbf:
             return self.kernel.K(x, diag=noise)

@@ -1,10 +1,12 @@
-"""Cached predictive posteriors for exact-GP serving.
+"""Cached predictive posteriors for serving.
 
-Counterpart of the exact-GP part of ``gptorch_tpu/models/posterior.py``:
-``model.posterior()`` factorizes once and returns a :class:`GPRPosterior`
-whose predictions cost one cross-Gram and one triangular solve;
-:meth:`GPRPosterior.for_serving` converts L to L⁻¹ once and returns a
-:class:`ServingGPRPosterior` whose predictions are matrix products only.
+Counterpart of the exact-GP and sparse parts of
+``gptorch_tpu/models/posterior.py``: ``model.posterior()`` factorizes once
+and returns a posterior whose predictions cost one cross-Gram and
+triangular solves (:class:`GPRPosterior`; :class:`LowRankPosterior` for VFE
+and FITC; :class:`SVGPPosterior`); its ``for_serving`` inverts the
+triangular factors once and returns a serving twin whose predictions are
+matrix products only.
 
 A posterior is a frozen serving artifact: its factors are computed under
 ``torch.no_grad()``.  Its public predict methods follow the model's rule
@@ -17,7 +19,9 @@ from __future__ import annotations
 import torch
 
 from ..functions import cholesky, trtrs
+from ..ops.blocked import blocked_trtri
 from .base import Predictive, _coerce_io
+from .sparse_gpr import _diag_or_full, _low_rank_solve
 
 
 class Posterior(Predictive):
@@ -75,8 +79,6 @@ class GPRPosterior(Posterior):
             eye = torch.eye(self.L.shape[0], dtype=self.L.dtype, device=self.L.device)
             Linv = torch.linalg.solve_triangular(self.L, eye, upper=False)
         elif method == "blocked":
-            from ..ops.blocked import blocked_trtri
-
             Linv = blocked_trtri(self.L, nb=nb)
         else:
             raise ValueError("method must be 'blocked' or 'solve'")
@@ -131,3 +133,138 @@ def gpr_posterior(model) -> GPRPosterior:
     """Factorize ``model`` once into a :class:`GPRPosterior`."""
     L, V = _gpr_factors(model)
     return GPRPosterior(model.kernel, model.likelihood, model.mean_function, model.X, L, V)
+
+
+class LowRankPosterior(Posterior):
+    """Sparse (VFE, FITC) posterior with cached L = chol(Kuu),
+    LB = chol(B) and c; each predict is O(m²·n*)."""
+
+    def __init__(self, kernel, likelihood, mean_function, Z, L, LB, c):
+        super().__init__()
+        self.kernel = kernel
+        self.likelihood = likelihood
+        self.mean_function = mean_function
+        self.Z = Z
+        self.L = L
+        self.LB = LB
+        self.c = c
+
+    @torch.no_grad()
+    def for_serving(self, nb: int = 1024):
+        """E₁ = L⁻¹, E₂ = LB⁻¹L⁻¹ and w = E₂ᵀc, once →
+        :class:`ServingLowRankPosterior`."""
+        E1 = blocked_trtri(self.L, nb=nb)
+        E2 = blocked_trtri(self.LB, nb=nb) @ E1
+        return ServingLowRankPosterior(
+            self.kernel, self.likelihood, self.mean_function, self.Z, E1, E2, E2.T @ self.c
+        )
+
+    def _predict(self, x_new, diag=True):
+        Kus = self.kernel.K(self.Z, x_new)
+        tmp1 = trtrs(Kus, self.L)
+        tmp2 = trtrs(tmp1, self.LB)
+        mean = tmp2.T @ self.c
+        if self.mean_function is not None:
+            mean = mean + self.mean_function(x_new)
+        return mean, _diag_or_full(self.kernel, x_new, mean, tmp1, tmp2, diag)
+
+
+class ServingLowRankPosterior(Posterior):
+    """Sparse serving posterior from E₁ = L⁻¹, E₂ = LB⁻¹L⁻¹ and w = E₂ᵀc:
+    each predict is two (m, m)×(m, n*) products, no triangular solve."""
+
+    def __init__(self, kernel, likelihood, mean_function, Z, E1, E2, w):
+        super().__init__()
+        self.kernel = kernel
+        self.likelihood = likelihood
+        self.mean_function = mean_function
+        self.Z = Z
+        self.E1 = E1
+        self.E2 = E2
+        self.w = w
+
+    def _predict(self, x_new, diag=True):
+        Kus = self.kernel.K(self.Z, x_new)
+        mean = Kus.T @ self.w
+        if self.mean_function is not None:
+            mean = mean + self.mean_function(x_new)
+        return mean, _diag_or_full(self.kernel, x_new, mean, self.E1 @ Kus, self.E2 @ Kus, diag)
+
+
+class SVGPPosterior(Posterior):
+    """SVGP posterior with cached L = chol(Kuu), L⁻¹m_u and β = L⁻¹L_q."""
+
+    def __init__(self, kernel, likelihood, mean_function, Z, L, Linv_m, beta):
+        super().__init__()
+        self.kernel = kernel
+        self.likelihood = likelihood
+        self.mean_function = mean_function
+        self.Z = Z
+        self.L = L
+        self.Linv_m = Linv_m
+        self.beta = beta
+
+    @torch.no_grad()
+    def for_serving(self, nb: int = 1024):
+        """E₁ = L⁻¹, G = βᵀE₁ and w = E₁ᵀ(L⁻¹m_u), once →
+        :class:`ServingSVGPPosterior`."""
+        E1 = blocked_trtri(self.L, nb=nb)
+        return ServingSVGPPosterior(
+            self.kernel, self.likelihood, self.mean_function, self.Z, E1, self.beta.T @ E1, E1.T @ self.Linv_m
+        )
+
+    def _predict(self, x_new, diag=True):
+        alpha_t = trtrs(self.kernel.K(self.Z, x_new), self.L)  # (m, n*)
+        mean = alpha_t.T @ self.Linv_m + self.mean_function(x_new)
+        return mean, _diag_or_full(self.kernel, x_new, mean, alpha_t, self.beta.T @ alpha_t, diag)
+
+
+class ServingSVGPPosterior(Posterior):
+    """SVGP serving posterior from E₁ = L⁻¹, G = (L⁻¹L_q)ᵀL⁻¹ and
+    w = L⁻ᵀ(L⁻¹m_u): each predict is two (m, m)×(m, n*) products."""
+
+    def __init__(self, kernel, likelihood, mean_function, Z, E1, G, w):
+        super().__init__()
+        self.kernel = kernel
+        self.likelihood = likelihood
+        self.mean_function = mean_function
+        self.Z = Z
+        self.E1 = E1
+        self.G = G
+        self.w = w
+
+    def _predict(self, x_new, diag=True):
+        kuf = self.kernel.K(self.Z, x_new)
+        mean = kuf.T @ self.w + self.mean_function(x_new)
+        return mean, _diag_or_full(self.kernel, x_new, mean, self.E1 @ kuf, self.G @ kuf, diag)
+
+
+@torch.no_grad()
+def vfe_posterior(model) -> LowRankPosterior:
+    """Factorize a VFE model once into a :class:`LowRankPosterior`."""
+    z = model.Z.value.detach()
+    L, LB, c = _low_rank_solve(model, z, model.X, model._sigma2())
+    return LowRankPosterior(model.kernel, model.likelihood, model.mean_function, z, L, LB, c)
+
+
+@torch.no_grad()
+def fitc_posterior(model) -> LowRankPosterior:
+    """Factorize a FITC model once into a :class:`LowRankPosterior`."""
+    z = model.Z.value.detach()
+    L, LB, c = _low_rank_solve(model, z, model.X, None)
+    return LowRankPosterior(model.kernel, model.likelihood, model.mean_function, z, L, LB, c)
+
+
+@torch.no_grad()
+def svgp_posterior(model) -> SVGPPosterior:
+    """Factorize an SVGP model once into an :class:`SVGPPosterior`; a
+    whitened q is already in L⁻¹-space."""
+    z = model.Z.value.detach()
+    L = cholesky(model._kuu(z))
+    if model.whiten:
+        Linv_m = model.induced_output_mean.value
+        beta = model.induced_output_chol_cov.value
+    else:
+        Linv_m = trtrs(model.induced_output_mean.value, L)
+        beta = trtrs(model.induced_output_chol_cov.value, L)
+    return SVGPPosterior(model.kernel, model.likelihood, model.mean_function, z, L, Linv_m, beta)

@@ -81,6 +81,15 @@ def next_seed() -> int:
     return seed
 
 
+def next_default_generator(device=None) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` (the CPU if None), seeded from
+    :func:`next_seed`: the counterpart of the JAX package's
+    ``next_default_key`` for APIs called without an explicit generator
+    (a minibatched model's loss).  Explicit generators are preferred; the
+    two packages draw different numbers from the same seed."""
+    return torch.Generator(device=device if device is not None else "cpu").manual_seed(next_seed())
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``device`` if given, else
     ``config.device``.

@@ -20,7 +20,10 @@ Counterpart of ``gptorch_tpu/training/fit.py``:
   non-finite gradient entries replaced by zeros.
 
 Models train in place: their raw ``nn.Parameter``s are the optimizer's
-state, so the trained model is the model passed in.  L-BFGS (optax's
+state, so the trained model is the model passed in.  A minibatched model
+(SVGP with ``batch_size``) draws each step's batch from the loop's
+``generator``, whose state advances from step to step: the counterpart of
+the JAX package's ``fold_in(key, idx)``.  L-BFGS (optax's
 zoom line search, ``fit_scan``'s compiled quasi-Newton run) is not ported.
 """
 
@@ -132,9 +135,15 @@ def make_optimizer(method: str, params, learning_rate: Optional[float] = None):
     )
 
 
-def _step(model, opt):
+def _default_generator(model) -> torch.Generator:
+    """The loops' generator when the caller gives none: seeded 0 on the
+    model's device, as the JAX package's loops default to PRNGKey(0)."""
+    return torch.Generator(device=model.device).manual_seed(0)
+
+
+def _step(model, opt, generator):
     opt.zero_grad(set_to_none=True)
-    lval = model._loss()
+    lval = model._loss(generator=generator)
     lval.backward()
     opt.step()
     return lval.detach()
@@ -145,20 +154,23 @@ def fit_torch(
     method: str = "Adam",
     max_iter: int = 2000,
     learning_rate: Optional[float] = None,
+    generator: Optional[torch.Generator] = None,
     verbose: bool = True,
     callback: Optional[Callable[[int, float], None]] = None,
 ):
     """Eager training loop, the counterpart of the JAX package's
     ``fit_optax``: one step per iteration and one host read of the loss per
-    step (the loss before that step's update).
+    step (the loss before that step's update).  Minibatches come from
+    ``generator`` (default: seeded 0 on the model's device).
 
     Returns (model trained in place, losses ndarray, wall seconds).
     """
     opt = make_optimizer(method, trainable_parameters(model), learning_rate)
+    generator = generator if generator is not None else _default_generator(model)
     losses = np.zeros(max_iter)
     tic = _time.time()
     for idx in range(max_iter):
-        losses[idx] = float(_step(model, opt))
+        losses[idx] = float(_step(model, opt, generator))
         if not np.isfinite(losses[idx]):
             raise _nonfinite_loss_error(idx)
         if callback is not None:
@@ -168,19 +180,27 @@ def fit_torch(
     return model, losses, _time.time() - tic
 
 
-def fit_scan(model, method: str = "Adam", max_iter: int = 2000, learning_rate: Optional[float] = None):
+def fit_scan(
+    model,
+    method: str = "Adam",
+    max_iter: int = 2000,
+    learning_rate: Optional[float] = None,
+    generator: Optional[torch.Generator] = None,
+):
     """Training loop with no host read per step: each step's loss is written
     into a device tensor, which is checked for non-finite values once, at
-    the end.  Returns (model trained in place, losses tensor (max_iter,) on
-    the model's device).
+    the end.  Minibatches come from ``generator`` (default: seeded 0 on the
+    model's device).  Returns (model trained in place, losses tensor
+    (max_iter,) on the model's device).
 
     The JAX package compiles this loop into one program (``lax.scan``); here
     it runs eagerly.
     """
     opt = make_optimizer(method, trainable_parameters(model), learning_rate)
+    generator = generator if generator is not None else _default_generator(model)
     losses = torch.empty((max_iter,), dtype=model.X.dtype, device=model.device)
     for idx in range(max_iter):
-        losses[idx] = _step(model, opt)
+        losses[idx] = _step(model, opt, generator)
     bad = torch.nonzero(~torch.isfinite(losses)).flatten()
     if bad.numel():
         raise _nonfinite_loss_error(int(bad[0]))
@@ -211,7 +231,10 @@ def fit_scipy(
 ):
     """Bridge to ``scipy.optimize.minimize``: each evaluation loads the
     float64 vector into the model, returns the loss and the packed gradient
-    as float64, and replaces non-finite gradient entries with zeros.
+    as float64, and replaces non-finite gradient entries with zeros.  A
+    minibatched model sees one fixed batch, drawn by a generator seeded 0 at
+    every evaluation (the JAX package holds its dummy key fixed), so the
+    objective is deterministic.
 
     Returns (model trained in place, scipy OptimizeResult).
     """
@@ -223,7 +246,7 @@ def fit_scipy(
     def fun(vector):
         set_trainable(model, unpack_vector(np.asarray(vector), values0))
         raws = get_trainable(model)
-        lval = model._loss()
+        lval = model._loss(generator=_default_generator(model))
         grads = torch.autograd.grad(lval, [raws[k] for k in keys], allow_unused=True)
         grads = {k: torch.zeros_like(raws[k]) if gk is None else gk for k, gk in zip(keys, grads)}
         g = pack_vector(grads)

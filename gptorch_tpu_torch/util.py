@@ -1,6 +1,8 @@
-"""Utilities: tensor coercion and pairwise squared distances.
+"""Utilities: tensor coercion, pairwise squared distances and k-means
+centres.
 
-Counterpart of ``gptorch_tpu/util.py`` (``as_array``, ``squared_distance``).
+Counterpart of ``gptorch_tpu/util.py`` (``as_array``, ``squared_distance``,
+``kmeans_centers``).
 """
 
 from __future__ import annotations
@@ -51,3 +53,28 @@ def squared_distance(x1, x2=None):
         x2s = torch.sum(x2 * x2, dim=-1, keepdim=True)
         r2 = x1s + x2s.transpose(-1, -2) - 2.0 * (x1 @ x2.transpose(-1, -2))
     return r2 - r2.clamp(max=0.0).detach()
+
+
+def kmeans_centers(x: np.ndarray, k: int, perturb_if_fail: bool = False, seed: int = 0) -> np.ndarray:
+    """K-means cluster centres for inducing-point initialization, on the host.
+
+    The JAX package's algorithm and seeding: scipy's ``kmeans2`` with
+    k-means++ initialization (``minit="++"``: the default random init can
+    leave clusters empty, giving duplicated centres and a singular Kuu) and
+    a ``np.random.RandomState(seed)``, so both packages give the same
+    centres.  On a ``LinAlgError`` it retries once with inputs perturbed by
+    1e-4 of each column's standard deviation when ``perturb_if_fail``.
+    """
+    from scipy.cluster.vq import kmeans2
+
+    x = np.asarray(x)
+    rng = np.random.RandomState(seed)
+    try:
+        centers = kmeans2(x, k, minit="++", seed=rng)[0]
+    except np.linalg.LinAlgError:
+        if not perturb_if_fail:
+            raise
+        x_scale = x.std(axis=0)
+        x_perturbed = x + 1.0e-4 * x_scale * rng.randn(*x.shape)
+        centers = kmeans2(x_perturbed, k, minit="++", seed=rng)[0]
+    return centers

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from gptorch_tpu_torch import kernels, likelihoods, mean_functions, settings
-from gptorch_tpu_torch.models import GPR
+from gptorch_tpu_torch.models import FITC, GPR, SVGP, VFE
 from gptorch_tpu_torch.module import get_trainable
 from gptorch_tpu_torch.ops import contract, gpr_fast, gram
 
@@ -243,3 +243,109 @@ def test_serving_card_matches_cpu(cuda):
                 out[device] = (*post.predict_f(xs), *serving.predict_y(xs), serving.mean_only(xs))
     for a, b in zip(out["cuda"], out["cpu"]):
         np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12)
+
+
+#: K1 at the sparse paths' shapes, d = 9: Kuf (1024 × 4096 cross), Kuu
+#: (1024² symmetric, no added diagonal), a ragged pair.
+SPARSE_SHAPES = [(1024, 4096), (1024, None), (1000, 4000)]
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 2e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("n1, n2", SPARSE_SHAPES)
+def test_kernel_at_sparse_shapes(cuda, dtype, tol, n1, n2):
+    """Forward against the plain twin (tolerance per unit of var, as above)
+    and the backward against autograd through the twin; the symmetric
+    launch with ``diag=None`` adds exactly 0 on its diagonal."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    leaves = {
+        "x1": torch.randn(n1, 9, generator=g, device="cuda", dtype=dtype),
+        "x2": None if n2 is None else torch.randn(n2, 9, generator=g, device="cuda", dtype=dtype),
+        "var": torch.tensor(1.3, device="cuda", dtype=dtype),
+    }
+    outs, grads = [], []
+    for fn in (lambda a, b, v: gram.rbf_gram(a, b, var=v), lambda a, b, v: gram.rbf_gram_plain(a, b, v)):
+        inputs = {k: None if t is None else t.clone().requires_grad_() for k, t in leaves.items()}
+        before = gram.rbf_gram.launches
+        out = fn(*inputs.values())
+        outs.append((out.detach(), gram.rbf_gram.launches - before))
+        cot = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(5), device="cuda",
+                          dtype=dtype)
+        grads.append(torch.autograd.grad(out, [t for t in inputs.values() if t is not None], cot))
+    (k, launched), (p, plain_launched) = outs
+    assert (launched, plain_launched) == (1, 0)
+    assert float((k - p).abs().max()) <= tol * 1.3
+    if n2 is None:
+        assert torch.equal(k.diagonal(), leaves["var"].expand(n1))
+    # each cotangent sums n2 (x1, var) or n1 (x2) terms of O(1): rounding of
+    # the twin's r² at u per term, about √n·u relative to the largest entry
+    rel = 1e-3 if dtype == torch.float32 else 1e-10
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=rel, atol=rel * float(b.abs().max()))
+
+
+def _sparse_models(device, whiten):
+    rng = np.random.RandomState(7)
+    x = rng.randn(300, 3)
+    y = np.sin(x[:, :1]) + 0.1 * rng.randn(300, 1)
+    z = x[rng.permutation(300)[:40]]
+    common = dict(inducing_points=z, jitter=1e-6, device=device)
+    return {
+        "svgp": SVGP(x, y, kernels.Rbf(3, ARD=True), likelihood=likelihoods.Gaussian(0.1), whiten=whiten,
+                     batch_size=64, **common),
+        "vfe": VFE(x, y, kernels.Rbf(3, ARD=True), likelihood=likelihoods.Gaussian(0.1), **common),
+        "fitc": FITC(x, y, kernels.Rbf(3, ARD=True), likelihood=likelihoods.Gaussian(0.1), **common),
+    }, x, y
+
+
+@pytest.mark.parametrize("whiten", [False, True])
+def test_sparse_models_card_match_cpu(cuda, whiten):
+    """SVGP (on one explicit batch), VFE and FITC loss and gradient, and
+    each model's serving posterior, in float64: the card's route (K1 for
+    Kuu, Kuf and Kus, with its backward) against the CPU's plain route."""
+    out = {}
+    with _float64(), settings.override(jitter_policy="fixed"):
+        for device in ("cuda", "cpu"):
+            models, x, y = _sparse_models(device, whiten)
+            xs = torch.as_tensor(x[:50], device=device)
+            res = {}
+            for name, model in models.items():
+                before = gram.rbf_gram.launches
+                batch = (model.X[:64], model.Y[:64]) if name == "svgp" else (None, None)
+                loss = model.loss(*batch)
+                loss.backward()
+                grads = {k: v.grad.cpu().clone() for k, v in get_trainable(model).items()}
+                serving = model.posterior().for_serving(nb=16)
+                res[name] = (float(loss.detach()), grads, [t.cpu() for t in serving.predict_f(xs)],
+                             gram.rbf_gram.launches - before)
+            out[device] = res
+    for name, (loss, grads, moments, launched) in out["cuda"].items():
+        cpu = out["cpu"][name]
+        assert launched >= 3 and cpu[3] == 0, name
+        assert loss == pytest.approx(cpu[0], rel=1e-10), name
+        for k, g in grads.items():
+            torch.testing.assert_close(g, cpu[1][k], rtol=1e-8, atol=1e-8 * float(g.abs().max()),
+                                       msg=lambda m, name=name, k=k: f"{name} {k}: {m}")
+        for a, b in zip(moments, cpu[2]):
+            torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-10)
+
+
+def test_svgp_minibatch_and_natgrad_on_the_card(cuda):
+    """The generator lives on the card, the batch is drawn there, and one
+    natural-gradient step matches the CPU's from the same values."""
+    from gptorch_tpu_torch.training import natgrad
+
+    with _float64():
+        res = {}
+        for device in ("cuda", "cpu"):
+            models, _, _ = _sparse_models(device, whiten=False)
+            model = models["svgp"]
+            model.batch_size = None
+            step, _ = natgrad.make_natgrad_step(model, nat_lr=0.5)
+            loss = step()
+            res[device] = (float(loss), {k: v.detach().cpu() for k, v in get_trainable(model).items()})
+        models, _, _ = _sparse_models("cuda", whiten=True)
+        losses = models["svgp"].fit_scan("Adam", max_iter=3, generator=torch.Generator(device="cuda").manual_seed(0))
+        assert losses.device.type == "cuda" and bool(torch.isfinite(losses).all())
+    assert res["cuda"][0] == pytest.approx(res["cpu"][0], rel=1e-10)
+    for k, v in res["cuda"][1].items():
+        torch.testing.assert_close(v, res["cpu"][1][k], rtol=1e-7, atol=1e-9)
