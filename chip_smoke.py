@@ -30,9 +30,23 @@
    of one value-and-grad.  Checks: finite, decreasing losses; NLML and
    gradient in float32 against the same computation in float64 at
    n = 32768; and at n = 4096 in float64 the card's route against the CPU's
-   on the fused radial, generic and kernel-general paths.
-
-5. Sparse training (main path 3): bench_svgp.py's configuration, SVGP at
+   on the fused radial, generic and kernel-general paths, the composite
+   Linear + Rbf + Constant, the leave-one-out objective, and inputs too
+   wide for the contraction kernel (d = 33, dy = 33: general on the card,
+   fused on the CPU).
+5. General training (main path 3): the same data with the composite
+   Linear + Rbf + Constant on the kernel-general path, ``fit_scan`` Adam
+   (a warm and a timed call of 2 steps), ``predict_f_samples`` (256 x 64)
+   and ``predict_f``, then ``optimize("L-BFGS-B", max_iter=2)``.  Checks:
+   the samples' moments against ``predict_f``, stage times with bounds,
+   NLML and gradient in float32 against float64 at n = 32768.
+6. Observe loop (main path 4): the serving cell's model, ``posterior()``,
+   ``fantasy_chain(capacity=n + 64)``, 32 ``observe`` calls of 2 points,
+   ``for_serving()``, ``sample_paths(16, 1024)`` on both posteriors over
+   4096 candidates.  Checks: the chain against a refit of the augmented
+   data and against ``condition_on`` on both posteriors, the paths finite
+   and the same for the same seed; the stages of one observe.
+7. Sparse training (main path 5): bench_svgp.py's configuration, SVGP at
    n = 45730, d = 9, m = 1024, batch 4096, Rbf-ARD, Gaussian(), jitter
    1e-6, fixed jitter policy, float32, through ``model.fit_scan("Adam",
    max_iter=50, learning_rate=1e-2, generator=...)``: one warm call, one
@@ -43,7 +57,7 @@
    the card; and at n = 4096, m = 256 in float64 the card's route against
    the CPU's for SVGP (both parameterizations), VFE, FITC and one natural-
    gradient step.
-6. Sparse serving (main paths 4 and 5): a VFE on all n = 45730 points
+8. Sparse serving (main paths 6 and 7): a VFE on all n = 45730 points
    (sharing the trained SVGP's kernel, likelihood and inducing inputs) and
    the trained SVGP, each through posterior() -> for_serving() -> 8 batches
    of 256, serving against the triangular-solve posterior; and one VFE
@@ -99,6 +113,15 @@ F32_UNIT_ROUNDOFF = 2.0 ** -24
 SP_N, SP_D, SP_M, SP_BATCH = 45730, 9, 1024, 4096
 SP_STEPS, SP_LR, SP_JITTER = 50, 1e-2, 1e-6
 SP_PROFILED_STEPS = 10
+# The kernel-general training path: the reference example's composite at
+# bench.py's scale, fit_scan Adam (warm call + timed call) then L-BFGS-B,
+# then joint posterior samples.
+GEN_STEPS, GEN_LBFGS_ITERS, GEN_SAMPLES = 2, 2, 64
+# The observe loop at the serving cell: a chain with room for OBS_STEPS
+# batches of OBS_NB points, then posterior function samples over
+# PATH_CANDIDATES candidate inputs.
+OBS_STEPS, OBS_NB = 32, 2
+PATH_SAMPLES, PATH_FEATURES, PATH_CANDIDATES = 16, 1024, 4096
 
 
 class CheckFailed(Exception):
@@ -657,54 +680,423 @@ def full_width_agreement(torch, model):
 
 def card_vs_cpu(torch, gram, contract):
     """n = 4096 in float64: loss and gradient of GPR on the card against the
-    CPU's plain route, on the three training paths, to 1e-8 relative (the
-    gradient relative to its largest entry)."""
+    CPU's plain route, to 1e-8 relative (the gradient relative to its
+    largest entry): the fused radial, generic and kernel-general paths, the
+    reference example's composite, the leave-one-out objective (blocked
+    factor), and inputs too wide for the contraction kernel (d = 33 or
+    dy = 33), which the card routes to the kernel-general path while the
+    CPU keeps the fused one."""
     from gptorch_tpu_torch import kernels, likelihoods, mean_functions, settings
     from gptorch_tpu_torch.models import GPR
     from gptorch_tpu_torch.module import get_trainable
 
     n = 4096
     x, y, _ = make_data(n, D, np.float64, seed=2)
+    wide_x = np.random.RandomState(3).randn(n, 33)
+    wide_y = np.sin(x[:, :1] * np.arange(1, 34)) + 0.1 * np.random.RandomState(4).randn(n, 33)
     ell = np.linspace(0.8, 1.6, D)
+
+    def rbf(d=D):
+        return kernels.Rbf(d, ARD=True, length_scales=np.linspace(0.8, 1.6, d) * math.sqrt(d / D), variance=1.3)
+
+    # route: (kernel, mean, fast, objective, x, y)
     routes = {
-        "fused radial (Rbf, fast=True)": lambda: (kernels.Rbf(D, ARD=True, length_scales=ell, variance=1.3),
-                                                  None, True),
-        "generic (Rbf, fast=False)": lambda: (kernels.Rbf(D, ARD=True, length_scales=ell, variance=1.3),
-                                              None, False),
+        "fused radial (Rbf, fast=True)": lambda: (rbf(), None, True, "nlml", x, y),
+        "generic (Rbf, fast=False)": lambda: (rbf(), None, False, "nlml", x, y),
         "general (Rbf + Matern32, LinearMean)": lambda: (
             kernels.Rbf(D, ARD=True, length_scales=ell, variance=1.3) + kernels.Matern32(D, variance=0.4),
-            mean_functions.LinearMean(D, 1, W=0.1 * np.ones((1, D)), b=np.array([0.2])), True),
+            mean_functions.LinearMean(D, 1, W=0.1 * np.ones((1, D)), b=np.array([0.2])), True, "nlml", x, y),
+        "general (Linear + Rbf + Constant)": lambda: (composite_kernel(kernels, D), None, None, "nlml", x, y),
+        "loo (Rbf, blocked factor)": lambda: (rbf(), None, None, "loo", x, y),
+        "wide d=33 (Rbf)": lambda: (rbf(33), None, None, "nlml", wide_x, y),
+        "wide dy=33 (Rbf)": lambda: (rbf(), None, None, "nlml", x, wide_y),
     }
+    general = lambda c: c["rbf_gram"] >= 2 and c["radial_contractions"] == 0  # noqa: E731
     expect = {  # (rbf_gram, radial_contractions) launches on the card
         "fused radial (Rbf, fast=True)": lambda c: c["rbf_gram"] == 1 and c["radial_contractions"] == 1,
         "generic (Rbf, fast=False)": lambda c: c["rbf_gram"] >= 1,
-        "general (Rbf + Matern32, LinearMean)": lambda c: c["rbf_gram"] >= 2,
+        "general (Rbf + Matern32, LinearMean)": general,
+        "general (Linear + Rbf + Constant)": general,
+        "loo (Rbf, blocked factor)": lambda c: c["rbf_gram"] >= 1 and c["radial_contractions"] == 0,
+        "wide d=33 (Rbf)": general,
+        "wide dy=33 (Rbf)": general,
     }
     out = {}
     with default_dtype(torch, torch.float64), settings.override(jitter_policy="fixed"):
         for route, make in routes.items():
             res = {}
             for device in ("cuda", "cpu"):
-                kern, mean, fast = make()
-                model = GPR(x, y, kern, mean_function=mean, likelihood=likelihoods.Gaussian(0.1), fast=fast,
-                            fast_block=TRAIN_NB, device=device)
+                kern, mean, fast, objective, xr, yr = make()
+                model = GPR(xr, yr, kern, mean_function=mean, likelihood=likelihoods.Gaussian(0.1), fast=fast,
+                            fast_block=TRAIN_NB, objective=objective, device=device)
+                fused = model._fast_eligible(model.X)
                 zero_counts(gram, contract)
                 loss = model.loss()
                 loss.backward()
                 raws = get_trainable(model)
                 res[device] = (float(loss.detach()), np.concatenate([raws[k].grad.cpu().numpy().ravel()
-                                                            for k in sorted(raws)]), read_counts(gram, contract))
+                                                            for k in sorted(raws)]), read_counts(gram, contract),
+                               fused)
                 del model, loss, raws
             value_rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
             grad_rel = float(np.abs(res["cuda"][1] - res["cpu"][1]).max() / np.abs(res["cpu"][1]).max())
             print(f"# training f64 card vs CPU n={n} {route}: loss rel {value_rel:.3e}, gradient rel "
-                  f"{grad_rel:.3e} (tol {F64_REL_TOL}), card launches {res['cuda'][2]}", flush=True)
+                  f"{grad_rel:.3e} (tol {F64_REL_TOL}), card launches {res['cuda'][2]}, fused route on the card "
+                  f"{res['cuda'][3]}, on the CPU {res['cpu'][3]}", flush=True)
             check(expect[route](res["cuda"][2]), f"{route}: unexpected launches {res['cuda'][2]}")
             check(res["cpu"][2] == {"rbf_gram": 0, "radial_contractions": 0}, f"{route}: the CPU launched")
+            if route.startswith("wide"):
+                check(res["cpu"][3] and not res["cuda"][3], f"{route}: the routes are not CPU fused, card general")
             check(value_rel <= F64_REL_TOL, f"{route}: loss card vs CPU {value_rel} > {F64_REL_TOL}")
             check(grad_rel <= F64_REL_TOL, f"{route}: gradient card vs CPU {grad_rel} > {F64_REL_TOL}")
             out[route] = {"value_rel": value_rel, "grad_rel": grad_rel, "launches": res["cuda"][2]}
     torch.cuda.empty_cache()
+    return out
+
+
+def composite_kernel(kernels, d):
+    """The reference example's composite: Linear-ARD + Rbf-ARD + Constant."""
+    return kernels.Linear(d, ARD=True) + kernels.Rbf(d, ARD=True) + kernels.Constant(d)
+
+
+def general_training_phase(torch, gram, contract):
+    """The kernel-general exact path at bench.py's scale: GPR(n = 32768,
+    d = 8, Linear + Rbf + Constant, Gaussian(0.1), fast_jitter=1e-3,
+    float32), ``fit_scan`` Adam lr 1e-4 (a warm call and a timed call of
+    GEN_STEPS steps), ``predict_f_samples`` of Q queries x GEN_SAMPLES
+    draws from a generator on the card and ``predict_f`` there, then
+    ``optimize("L-BFGS-B", max_iter=GEN_LBFGS_ITERS)``; then the samples'
+    moments against ``predict_f``, the stages of one value-and-grad, and
+    float32 against float64 at full n."""
+    from gptorch_tpu_torch import kernels, likelihoods
+    from gptorch_tpu_torch.models import GPR
+
+    x, y, xq = make_data(N, D, np.float32)
+    model = GPR(x, y, composite_kernel(kernels, D), likelihood=likelihoods.Gaussian(0.1), fast_jitter=TRAIN_JITTER)
+    check(model.device.type == "cuda", "GPR did not land on the card")
+    check(model._general_eligible(model.X) and not model._fast_eligible(model.X),
+          "the composite model is not on the kernel-general path")
+    out = {"n": N, "d": D, "dtype": "float32", "kernel": "Linear(ARD) + Rbf(ARD) + Constant", "steps": GEN_STEPS,
+           "lr": TRAIN_LR}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = model.fit_scan("Adam", max_iter=GEN_STEPS, learning_rate=TRAIN_LR)
+    torch.cuda.synchronize()
+    out["warm_call_s"] = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(gram, contract)
+    t0 = time.perf_counter()
+    losses = model.fit_scan("Adam", max_iter=GEN_STEPS, learning_rate=TRAIN_LR)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["step_ms"] = 1e3 * wall / GEN_STEPS
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # joint samples and the moments they are held against, at the state
+    # Adam left (noise 0.1); L-BFGS-B then moves the noise towards the
+    # data's 0.01, where float32 no longer resolves the posterior variance
+    # at these queries (PERF.md §7)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    samples = model.predict_f_samples(xq[0], n_samples=GEN_SAMPLES, generator=gen)
+    torch.cuda.synchronize()
+    out["samples_ms"] = 1e3 * (time.perf_counter() - t0)
+    moments = model.predict_f(xq[0])
+    t0 = time.perf_counter()
+    result = model.optimize("L-BFGS-B", max_iter=GEN_LBFGS_ITERS, verbose=False)
+    torch.cuda.synchronize()
+    out["lbfgs_s"] = time.perf_counter() - t0
+    out["lbfgs_evaluations"] = int(result.nfev)
+    out["lbfgs_loss"] = float(result.fun)
+    out["launches"] = read_counts(gram, contract)
+    out["losses"] = [float(v) for v in torch.cat([warm, losses]).cpu()]
+    print(f"# general training n={N} d={D} f32 {out['kernel']} fit_scan Adam lr={TRAIN_LR}: warm call of "
+          f"{GEN_STEPS} steps {out['warm_call_s']:.3f} s; timed call {out['step_ms']:.2f} ms/step, peak device "
+          f"memory {out['peak_mem_gb']:.2f} GB, losses {out['losses']}; L-BFGS-B max_iter={GEN_LBFGS_ITERS}: "
+          f"{out['lbfgs_s']:.3f} s, {out['lbfgs_evaluations']} evaluations, loss {out['lbfgs_loss']!r}; "
+          f"predict_f_samples {Q} x {GEN_SAMPLES}: {out['samples_ms']:.1f} ms; launches {out['launches']}",
+          flush=True)
+    check(out["launches"]["rbf_gram"] > 0, "the general training path never launched rbf_gram")
+    check(out["launches"]["radial_contractions"] == 0, "the general training path launched the radial contraction")
+    check(all(math.isfinite(v) for v in out["losses"]) and math.isfinite(out["lbfgs_loss"]),
+          "non-finite general training loss")
+    check(out["losses"][-1] < out["losses"][0], "general training did not lower the loss")
+
+    out["samples"] = sample_moments(samples, *moments)
+    out["stages_ms"] = general_stages(torch, model)
+    out["f32_vs_f64"] = general_full_width_agreement(torch, model)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def general_stages(torch, model):
+    """Warm CUDA-event times of one value-and-grad of the kernel-general
+    NLML and of its stages, one by one, each beside its bound (float32
+    elements moved, a triangular operand's triangle, or operations: n³/3
+    for the Cholesky, the triangular inverse and LᵀL; per Gram entry 2d for
+    Linear, 3d + 3 for Rbf and 2 for the sums; per entry of the chunked
+    VJP, 9d + 9: W, the two Grams again and their cotangent products)."""
+    from gptorch_tpu_torch.module import trainable_parameters
+    from gptorch_tpu_torch.ops import blocked, gpr_general
+
+    def value_and_grad():
+        model.zero_grad(set_to_none=True)
+        model._loss().backward()
+
+    vg_ms = time_ms(value_and_grad, 1)
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    n3, tri = N ** 3 / 3, N * N / 2
+    kernel, X, Y = model.kernel, model.X, model.Y
+    params = trainable_parameters(kernel)
+    with torch.no_grad():
+        noise = model.likelihood.variance.value.reshape(())
+        floor = noise + model.fast_jitter + model.fast_rel_jitter * torch.mean(kernel.Kdiag(X))
+        K = kernel.K(X)
+        K.diagonal().add_(floor)
+        L = blocked.blocked_cholesky(K, model.fast_block, lower_only=True)
+        alpha = blocked._solve_lower(L, Y)
+        A = blocked._solve_lower_t(L, alpha)
+        Linv = blocked.blocked_trtri(L, 1024)
+        Kinv = blocked.tril_square_rec(Linv, 512, 4096)
+
+    def chunked_vjp():
+        for lo, hi in gpr_general._chunk_bounds(N):
+            W_c = Kinv[lo:hi] - A[lo:hi] @ A.mT
+            with torch.enable_grad():
+                torch.autograd.grad(kernel.K(X[lo:hi], X), params, grad_outputs=0.5 * W_c)
+
+    gram_bound = bound_ms((N * D + N * N) * 4, N * N * (2 * D + 3 * D + 3 + 2), "float32")
+    stages = {
+        "forward: Gram K (Linear + Rbf (rbf_gram, K1) + Constant)": (lambda: kernel.K(X), 3, gram_bound),
+        "forward: blocked_cholesky (nb 1024; incl. the copy)": (
+            lambda: blocked.blocked_cholesky(K, model.fast_block, lower_only=True), 1,
+            bound_ms(2 * tri * 4, n3, "float32")),
+        "backward: blocked_trtri (nb 1024)": (lambda: blocked.blocked_trtri(L, 1024), 1,
+                                              bound_ms(2 * tri * 4, n3, "float32")),
+        "backward: tril_square_rec (nb 512, leaf 4096)": (lambda: blocked.tril_square_rec(Linv, 512, 4096), 1,
+                                                          bound_ms((tri + N * N) * 4, n3, "float32")),
+        "backward: chunked kernel VJP (4096-row chunks, K1 forward + torch backward)": (
+            chunked_vjp, 1, bound_ms((N * N + N * D) * 4, N * N * (9 * D + 9), "float32")),
+    }
+    times = {name: (time_ms(fn, reps), *bound) for name, (fn, reps, bound) in stages.items()}
+    del K, L, alpha, A, Linv, Kinv
+    torch.cuda.empty_cache()
+    vg_bound = sum(t[1] for t in times.values())
+    times = {"value_and_grad (loss + backward)": (vg_ms, vg_bound, "sum of its stages"), **times}
+    for name, (ms, bound, by) in times.items():
+        print(f"# general stage {name}: {ms:.3f} ms (bound {bound:.3f} ms, {by})", flush=True)
+    return times
+
+
+def sample_moments(samples, mean, var):
+    """The draws' mean and variance at each query against ``predict_f``'s
+    (``mean``, ``var``), in standard errors: sd/√S for the mean,
+    σ²·√(2/(S − 1)) for the variance; each must stay within 5."""
+    S = samples.shape[0]
+    check(samples.shape == (S, Q, 1) and np.isfinite(samples).all(), "bad predict_f_samples output")
+    m_se = np.abs(samples.mean(0) - mean) / np.sqrt(var / S)
+    v_se = np.abs(samples.var(0, ddof=1) - var) / (var * math.sqrt(2.0 / (S - 1)))
+    out = {"mean_max_se": float(m_se.max()), "var_max_se": float(v_se.max()), "var_range": [float(var.min()),
+                                                                                         float(var.max())]}
+    print(f"# general predict_f_samples {S} x {Q}: sample mean within {out['mean_max_se']:.2f} standard errors "
+          f"of predict_f, sample variance within {out['var_max_se']:.2f} (limit 5); predict_f variance "
+          f"{out['var_range'][0]:.3e} .. {out['var_range'][1]:.3e}", flush=True)
+    check(out["mean_max_se"] <= 5 and out["var_max_se"] <= 5, "predict_f_samples moments disagree with predict_f")
+    return out
+
+
+def general_full_width_agreement(torch, model):
+    """NLML and gradient of the kernel-general path at n = 32768 in float32
+    against a float64 copy of the model on the card.  Tolerance 4·u·κ, as
+    for the fused path (:func:`full_width_agreement`), with κ ≤ λ_max /
+    floor, floor = σ_n² + jitter + rel·mean(Kdiag) and λ_max from 30 power
+    iterations on the float64 K."""
+    import copy
+
+    from gptorch_tpu_torch.module import get_trainable
+
+    results = {}
+    for dtype in (torch.float32, torch.float64):
+        m = model if dtype == torch.float32 else copy.deepcopy(model).to(dtype)
+        m.zero_grad(set_to_none=True)
+        value = m.loss()
+        value.backward()
+        raws = get_trainable(m)
+        results[dtype] = (float(value.detach()), np.concatenate([raws[k].grad.double().cpu().numpy().ravel()
+                                                                 for k in sorted(raws)]))
+        m.zero_grad(set_to_none=True)
+        del value, raws
+        torch.cuda.empty_cache()
+    with torch.no_grad():
+        kern = m.kernel
+        floor = (m.likelihood.variance.value.reshape(()) + m.fast_jitter
+                 + m.fast_rel_jitter * torch.mean(kern.Kdiag(m.X)))
+        K = kern.K(m.X)
+        K.diagonal().add_(floor)
+        v = torch.ones(N, 1, dtype=torch.float64, device=K.device)
+        for _ in range(30):
+            v = K @ v
+            lam_max = float(v.norm())
+            v /= lam_max
+        del K, m
+        kappa = lam_max / float(floor)
+    torch.cuda.empty_cache()
+    tol = 4 * F32_UNIT_ROUNDOFF * kappa
+    (v32, g32), (v64, g64) = results[torch.float32], results[torch.float64]
+    value_rel = abs(v32 - v64) / abs(v64)
+    grad_rel = float(np.abs(g32 - g64).max() / np.abs(g64).max())
+    print(f"# general f32 vs f64 at n={N}: NLML {v32!r} vs {v64!r} (rel {value_rel:.3e}); gradient "
+          f"max|g32-g64|/max|g64| = {grad_rel:.3e}; kappa <= {kappa:.1f}, tol 4*u*kappa = {tol:.3e}", flush=True)
+    check(value_rel <= tol, f"general f32 vs f64 NLML at n={N}: {value_rel} > {tol}")
+    check(grad_rel <= tol, f"general f32 vs f64 gradient at n={N}: {grad_rel} > {tol}")
+    return {"nlml_f32": v32, "nlml_f64": v64, "value_rel": value_rel, "grad_rel": grad_rel,
+            "kappa_bound": kappa, "tol": tol}
+
+
+def observe_loop_phase(torch, gram, contract):
+    """The observe loop of Bayesian optimisation at the serving cell (n =
+    32768, d = 8, Rbf-ARD, Gaussian(0.1), fixed jitter, float32):
+    ``posterior()``, ``fantasy_chain(capacity=n + OBS_STEPS·OBS_NB)``,
+    OBS_STEPS ``observe`` calls of OBS_NB points, ``for_serving()``, and
+    ``sample_paths`` on both posteriors over PATH_CANDIDATES candidates.
+    Checks: the chain against a fresh factorization of the augmented data,
+    one ``condition_on`` of all the new points on each posterior against
+    the chain, and paths finite and the same for the same seed."""
+    from gptorch_tpu_torch import kernels, likelihoods, settings
+    from gptorch_tpu_torch.models import GPR
+
+    x, y, xq = make_data(N, D, np.float32)
+    rng = np.random.RandomState(5)
+    nb_total = OBS_STEPS * OBS_NB
+    xb = rng.randn(nb_total, D).astype(np.float32)
+    yb = (np.sin(xb[:, :1]) + 0.1 * rng.randn(nb_total, 1)).astype(np.float32)
+    cand = torch.as_tensor(rng.randn(PATH_CANDIDATES, D).astype(np.float32), device="cuda")
+    out = {"n": N, "d": D, "dtype": "float32", "steps": OBS_STEPS, "nb": OBS_NB}
+    with settings.override(jitter_policy="fixed"):
+        model = GPR(x, y, kernels.Rbf(D, ARD=True), likelihood=likelihoods.Gaussian(0.1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(gram, contract)
+        t0 = time.perf_counter()
+        post = model.posterior()
+        torch.cuda.synchronize()
+        out["factorize_ms"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        chain = post.fantasy_chain(capacity=N + nb_total)
+        torch.cuda.synchronize()
+        out["chain_ms"] = 1e3 * (time.perf_counter() - t0)
+        observe_ms = []
+        for i in range(OBS_STEPS):
+            t0 = time.perf_counter()
+            chain.observe(xb[i * OBS_NB:(i + 1) * OBS_NB], yb[i * OBS_NB:(i + 1) * OBS_NB])
+            torch.cuda.synchronize()
+            observe_ms.append(1e3 * (time.perf_counter() - t0))
+        out["observe_ms"] = observe_ms
+        t0 = time.perf_counter()
+        serving = post.for_serving()
+        torch.cuda.synchronize()
+        out["convert_ms"] = 1e3 * (time.perf_counter() - t0)
+        paths_out, out["paths_ms"] = {}, {}
+        for name, p in (("posterior", post), ("serving", serving)):
+            t0 = time.perf_counter()
+            paths = p.sample_paths(PATH_SAMPLES, PATH_FEATURES, generator=torch.Generator(device="cuda").manual_seed(0))
+            with torch.no_grad():
+                paths_out[name] = paths(cand)
+            torch.cuda.synchronize()
+            out["paths_ms"][name] = 1e3 * (time.perf_counter() - t0)
+        out["launches"] = read_counts(gram, contract)
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"# observe loop n={N} d={D} f32: factorize {out['factorize_ms']:.1f} ms, chain of capacity "
+              f"{N + nb_total} {out['chain_ms']:.1f} ms, {OBS_STEPS} observes of {OBS_NB}: median "
+              f"{np.median(observe_ms):.3f} ms (first {observe_ms[0]:.3f}, max {max(observe_ms):.3f}); convert "
+              f"{out['convert_ms']:.1f} ms; sample_paths({PATH_SAMPLES}, {PATH_FEATURES}) over {PATH_CANDIDATES} "
+              f"candidates: posterior {out['paths_ms']['posterior']:.2f} ms, serving "
+              f"{out['paths_ms']['serving']:.2f} ms; launches {out['launches']}, peak device memory "
+              f"{out['peak_mem_gb']:.2f} GB", flush=True)
+        check(out["launches"]["rbf_gram"] > 0, "the observe loop never launched rbf_gram")
+        out["checks"] = observe_checks(torch, model, post, serving, chain, xb, yb, xq[0], cand, paths_out)
+        out["stages_ms"] = observe_stages(torch, post, chain, xb[:OBS_NB])
+    del model, post, serving, chain
+    torch.cuda.empty_cache()
+    return out
+
+
+def observe_stages(torch, post, chain, x_new):
+    """Warm CUDA-event times of one observe's parts on the full chain, each
+    beside its bound: the (C, OBS_NB) cross Gram, the solve against the
+    (C, C) buffer (its triangle read once), and as yardsticks the same
+    solve against a column-major copy of the buffer and against the
+    posterior's n x n factor from cuSOLVER."""
+    from gptorch_tpu_torch.functions import trtrs
+
+    C, n = chain.capacity, post.L.shape[0]
+    with torch.no_grad():
+        xt = torch.as_tensor(x_new, dtype=chain.Xbuf.dtype, device=chain.Xbuf.device)
+        k = chain.kernel.K(chain.Xbuf, xt)
+        L_col = chain.Lbuf.mT.contiguous().mT
+        stages = {
+            f"cross Gram K(Xbuf, x_b) ({C}, {OBS_NB}) (rbf_gram)": (
+                lambda: chain.kernel.K(chain.Xbuf, xt), gram_bound_ms(C, OBS_NB, D, False, "float32", 4)),
+            "solve against Lbuf (C, C), row-major": (
+                lambda: trtrs(k, chain.Lbuf), bound_ms((C * C / 2 + 2 * C * OBS_NB) * 4, C * C * OBS_NB, "float32")),
+            "yardstick: the same solve, Lbuf copied column-major": (
+                lambda: trtrs(k, L_col), bound_ms((C * C / 2 + 2 * C * OBS_NB) * 4, C * C * OBS_NB, "float32")),
+            "yardstick: solve against the posterior's n x n L (cuSOLVER's layout)": (
+                lambda: trtrs(k[:n], post.L), bound_ms((n * n / 2 + 2 * n * OBS_NB) * 4, n * n * OBS_NB, "float32")),
+        }
+        times = {name: (time_ms(fn, 10), *bound) for name, (fn, bound) in stages.items()}
+        del L_col
+    torch.cuda.empty_cache()
+    print(f"# observe strides: Lbuf {tuple(chain.Lbuf.stride())}, posterior L {tuple(post.L.stride())}", flush=True)
+    for name, (ms, bound, by) in times.items():
+        print(f"# observe stage {name}: {ms:.3f} ms (bound {bound:.3f} ms, {by})", flush=True)
+    return times
+
+
+def observe_checks(torch, model, post, serving, chain, xb, yb, xq, cand, paths_out):
+    """The chain against a refit and against condition_on, and the paths'
+    determinism; moments and paths within SERVING_TOL (f32 factors of this
+    data, as in the serving phase)."""
+    from gptorch_tpu_torch.models import GPR
+
+    out = {}
+    ref = chain.predict_f(xq)
+    refit = GPR(torch.cat([model.X, torch.as_tensor(xb, device="cuda")]),
+                torch.cat([model.Y, torch.as_tensor(yb, device="cuda")]), model.kernel,
+                likelihood=model.likelihood).posterior()
+    candidates = {"refit": refit, "chain.posterior()": chain.posterior()}
+    for name, p in candidates.items():
+        got = p.predict_f(xq)
+        out[name] = max(float(np.abs(a - b).max()) for a, b in zip(got, ref))
+    del refit, candidates
+    torch.cuda.empty_cache()
+    for name, p in (("GPRPosterior.condition_on", post), ("ServingGPRPosterior.condition_on", serving)):
+        t0 = time.perf_counter()
+        cond = p.condition_on(xb, yb)
+        torch.cuda.synchronize()
+        out[name + " ms"] = 1e3 * (time.perf_counter() - t0)
+        got = cond.predict_f(xq)
+        out[name] = max(float(np.abs(a - b).max()) for a, b in zip(got, ref))
+        del cond
+        torch.cuda.empty_cache()
+    with torch.no_grad():
+        again = post.sample_paths(PATH_SAMPLES, PATH_FEATURES,
+                                  generator=torch.Generator(device="cuda").manual_seed(0))(cand)
+        a, s = paths_out["posterior"], paths_out["serving"]
+        out["paths finite"] = bool(torch.isfinite(a).all() and torch.isfinite(s).all())
+        out["paths same seed max abs"] = float((again - a).abs().max())
+        out["paths posterior vs serving"] = float((s - a).abs().max())
+        out["paths shape"] = list(a.shape)
+    print(f"# observe checks (max abs vs the chain's predict_f; tol {SERVING_TOL}): "
+          + ", ".join(f"{k} {v:.2f}" if k.endswith(" ms") else f"{k} {v:.3e}" if isinstance(v, float)
+                      else f"{k} {v}" for k, v in out.items()), flush=True)
+    for key in ("refit", "chain.posterior()", "GPRPosterior.condition_on", "ServingGPRPosterior.condition_on",
+                "paths posterior vs serving"):
+        check(out[key] <= SERVING_TOL, f"observe loop: {key} {out[key]} > {SERVING_TOL}")
+    check(out["paths finite"] and out["paths shape"] == [PATH_SAMPLES, PATH_CANDIDATES, 1], "bad sample paths")
+    check(out["paths same seed max abs"] <= 1e-6, "sample_paths differ for the same generator seed")
     return out
 
 
@@ -1063,6 +1455,8 @@ def main() -> int:
     contract_rows = contraction_phase(torch, contract)
     serving = serving_phase(torch, gram, contract)
     training = training_phase(torch, gram, contract)
+    general_training = general_training_phase(torch, gram, contract)
+    observe_loop = observe_loop_phase(torch, gram, contract)
     svgp, svgp_training = svgp_training_phase(torch, gram, contract)
     vfe_serving = sparse_serving_phase(torch, gram, contract, svgp, "vfe")
     svgp_serving = sparse_serving_phase(torch, gram, contract, svgp, "svgp")
@@ -1071,6 +1465,7 @@ def main() -> int:
     svgp_training["card_vs_cpu"] = sparse_card_vs_cpu(torch, gram, contract)
 
     paths = {"serving": serving["launches"], "training": training["launches"],
+             "general_training": general_training["launches"], "observe_loop": observe_loop["launches"],
              "svgp_training": svgp_training["launches"], "vfe_serving": vfe_serving["launches"],
              "svgp_serving": svgp_serving["launches"]}
     g, c = gram_rows[0], contract_rows[0]
@@ -1110,8 +1505,9 @@ def main() -> int:
         },
     ]}
     print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, peak device memory: serving "
-          f"{serving['peak_mem_gb']:.1f} GB, training {training['peak_mem_gb']:.1f} GB, svgp training "
-          f"{svgp_training['peak_mem_gb']:.3f} GB; total {time.perf_counter() - t_start:.1f} s", flush=True)
+          f"{serving['peak_mem_gb']:.1f} GB, training {training['peak_mem_gb']:.1f} GB, general training "
+          f"{general_training['peak_mem_gb']:.1f} GB, observe loop {observe_loop['peak_mem_gb']:.1f} GB, svgp "
+          f"training {svgp_training['peak_mem_gb']:.3f} GB; total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -16,10 +16,12 @@ from . import (
     models,
     ops,
     priors,
+    sampling,
     settings,
     training,
+    util,
 )
-from .module import Module, get_trainable, pack_vector, set_trainable, unpack_vector
+from .module import Module, get_trainable, pack_vector, set_trainable, unpack_vector, with_trainable
 from .param import Param, positive_param
 
 __all__ = [
@@ -32,8 +34,10 @@ __all__ = [
     "models",
     "ops",
     "priors",
+    "sampling",
     "settings",
     "training",
+    "util",
     "Module",
     "Param",
     "get_trainable",
@@ -41,4 +45,5 @@ __all__ = [
     "positive_param",
     "set_trainable",
     "unpack_vector",
+    "with_trainable",
 ]

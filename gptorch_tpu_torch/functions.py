@@ -53,8 +53,23 @@ def _jitter_schedule(dtype, device):
     return torch.tensor([10.0 ** (-n + i) for i in range(n)], dtype=dtype, device=device)
 
 
-def _chol_raw(a):
-    """Lower Cholesky factor; NaN wherever the factorization failed."""
+#: From this n on, ``cholesky(..., blocked=True)`` of one matrix takes the
+#: blocked factorization (the JAX package's threshold).
+_BLOCKED_MIN_N = 4096
+
+
+def _chol_raw(a, blocked: bool = True):
+    """Lower Cholesky factor; NaN wherever the factorization failed.
+
+    One matrix of n ≥ ``_BLOCKED_MIN_N`` with ``blocked`` takes
+    :func:`~gptorch_tpu_torch.ops.blocked.cholesky_blocked` (panel
+    factorization, closed-form adjoint), as in the JAX package; anything
+    else, or ``blocked=False``, takes ``torch.linalg.cholesky_ex``
+    (cuSOLVER on the card)."""
+    if blocked and a.ndim == 2 and a.shape[0] >= _BLOCKED_MIN_N:
+        from .ops.blocked import cholesky_blocked
+
+        return cholesky_blocked(a)
     L, info = torch.linalg.cholesky_ex(a)
     return L.masked_fill((info != 0)[..., None, None], float("nan"))
 
@@ -78,21 +93,26 @@ def _select_jitter(a):
     return schedule[-1]
 
 
-def cholesky(a, policy: str | None = None):
-    """Lower-triangular Cholesky factor with configurable jitter robustness."""
+def cholesky(a, policy: str | None = None, blocked: bool = True):
+    """Lower-triangular Cholesky factor with configurable jitter robustness.
+
+    ``blocked=False`` forces ``torch.linalg.cholesky_ex`` at every n (see
+    :func:`_chol_raw`): on the card cuSOLVER factors the n = 32768 Gram
+    faster than the blocked route, so the port's one-time factorizations
+    pass it."""
     a = torch.as_tensor(a)
     policy = policy if policy is not None else settings.config.jitter_policy
     if policy == "none":
-        return _chol_raw(a)
+        return _chol_raw(a, blocked)
     if policy == "fixed":
         scale = torch.mean(torch.diagonal(a, dim1=-2, dim2=-1), dim=-1)
-        return _chol_raw(add_diag(a, settings.config.fixed_jitter * scale.detach()))
+        return _chol_raw(add_diag(a, settings.config.fixed_jitter * scale.detach()), blocked)
     if policy == "adaptive":
         if a.ndim != 2:
             flat = a.reshape((-1,) + tuple(a.shape[-2:]))
-            return torch.stack([cholesky(m, policy="adaptive") for m in flat]).reshape(a.shape)
+            return torch.stack([cholesky(m, policy="adaptive", blocked=blocked) for m in flat]).reshape(a.shape)
         jitter = _select_jitter(a)
-        return _chol_raw(a if jitter is None else add_diag(a, jitter))
+        return _chol_raw(a if jitter is None else add_diag(a, jitter), blocked)
     raise ValueError(f"Unknown jitter policy {policy!r}")
 
 
@@ -130,7 +150,7 @@ def inverse(a):
 
 def cholesky_or_raise(a, policy: str | None = None):
     """:func:`cholesky` that raises when even the largest jitter fails."""
-    L = cholesky(a, policy=policy)
+    L = cholesky(a, policy=policy, blocked=False)
     if not bool(torch.isfinite(L).all()):
         raise RuntimeError("Max tries exceeded.")
     return L

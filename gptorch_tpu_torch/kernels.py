@@ -1,12 +1,12 @@
 """Covariance kernels.
 
-Counterpart of the radial and algebra kernels of ``gptorch_tpu/kernels.py``:
-White, Constant/Bias, Exp/Matern12, Matern32, Matern52, Rbf,
-RationalQuadratic, Sum and Product, with the same parameterizations and the
-same ARD length scales.
+Counterpart of the radial, dot-product and algebra kernels of
+``gptorch_tpu/kernels.py``: White, Constant/Bias, Exp/Matern12, Matern32,
+Matern52, Rbf, RationalQuadratic, Linear, Polynomial, Sum and Product, with
+the same parameterizations and the same ARD length scales and variances.
 
 :class:`Rbf` on a CUDA tensor builds its Gram with the hand-written kernel
-of :mod:`gptorch_tpu_torch.ops.gram`; the other radial kernels are plain
+of :mod:`gptorch_tpu_torch.ops.gram`; the other kernels are plain
 PyTorch on every device, as they are plain XLA in the JAX package.
 """
 
@@ -47,6 +47,16 @@ class Kernel(Module):
 
     def Kdiag(self, X):
         raise NotImplementedError
+
+    def _validate_ard_shape(self, x, ARD=None):
+        """Broadcast a scalar-or-vector hyperparameter against input_dim;
+        ``ARD=None`` infers it from the value's shape."""
+        if ARD is None:
+            ARD = np.asarray(x).squeeze().shape != ()
+        x = np.asarray(x) * np.ones(self.input_dim)
+        if x.shape != (self.input_dim,):
+            raise ValueError("shape of possibly-ARD param does not match input_dim")
+        return x, bool(ARD)
 
     def __add__(self, other):
         return Sum(self, other)
@@ -183,6 +193,46 @@ class RationalQuadratic(Stationary):
         r2 = self.squared_dist(X, X2)
         a = _scalar(self.alpha)
         return _scalar(self.variance) * torch.pow(1.0 + r2 / (2.0 * a), -a)
+
+
+class Linear(Kernel):
+    """k(x, x') = Σ_q σ²_q x_q x'_q, with per-dimension (ARD) variances.
+
+    The Gram is one product, as in the JAX package, which leaves it to XLA
+    outside any Pallas kernel."""
+
+    def __init__(self, input_dim: int, variance=1.0, ARD=None):
+        super().__init__(input_dim)
+        variance, self.ARD = self._validate_ard_shape(variance, ARD)
+        self.variance = positive_param(as_array(variance))
+
+    def K(self, X, X2=None):
+        other = X if X2 is None else X2
+        return (X * self.variance.value) @ other.T
+
+    def Kdiag(self, X):
+        return torch.sum(X * X * self.variance.value, dim=1)
+
+
+class Polynomial(Linear):
+    """k(x, x') = (Σ_q σ²_q x_q x'_q + b)^p with ARD variances (from
+    :class:`Linear`), a trainable offset b > 0 and a static integer degree
+    p ≥ 1.  The base can be negative, so the exponent is a Python int:
+    ``torch.pow`` then takes the exact integer power (and its gradient
+    p·base^(p−1)), never exp·log."""
+
+    def __init__(self, input_dim: int, degree: int = 2, variance=1.0, offset: float = 1.0, ARD=None):
+        super().__init__(input_dim, variance=variance, ARD=ARD)
+        if int(degree) < 1:
+            raise ValueError("degree must be >= 1")
+        self.degree = int(degree)
+        self.offset = positive_param(as_array(float(offset)))
+
+    def K(self, X, X2=None):
+        return torch.pow(super().K(X, X2) + _scalar(self.offset), self.degree)
+
+    def Kdiag(self, X):
+        return torch.pow(super().Kdiag(X) + _scalar(self.offset), self.degree)
 
 
 class Combination(Kernel):

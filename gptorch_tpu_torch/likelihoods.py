@@ -11,6 +11,7 @@ back to Gauss-Hermite quadrature (:mod:`gptorch_tpu_torch.quadrature`).
 
 from __future__ import annotations
 
+import copy
 import math
 
 import numpy as np
@@ -135,6 +136,14 @@ class FixedNoiseGaussian(Gaussian):
             raise ValueError("noise_variances must be non-negative")
         self.register_buffer("fixed", as_array(nv))
         self.variance = positive_param(as_array(float(extra_variance)), trainable=bool(learn_extra))
+
+    def extended(self, count: int) -> "FixedNoiseGaussian":
+        """A copy whose known variances are followed by ``count`` zeros:
+        rows observed with no known measurement noise, only the learned σ²
+        (what a fantasy update appends)."""
+        out = copy.deepcopy(self)
+        out.fixed = torch.cat([self.fixed, self.fixed.new_zeros((int(count),))])
+        return out
 
     def noise_diag(self, n: int):
         """The (n,) noise diagonal of the training rows."""

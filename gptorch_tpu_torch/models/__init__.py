@@ -1,6 +1,7 @@
 from .base import GPModel
 from .gpr import GPR
 from .posterior import (
+    FantasyGPRChain,
     GPRPosterior,
     LowRankPosterior,
     Posterior,
@@ -17,6 +18,7 @@ from .sparse_gpr import FITC, SVGP, VFE
 
 __all__ = [
     "FITC",
+    "FantasyGPRChain",
     "GPModel",
     "GPR",
     "GPRPosterior",

@@ -1,11 +1,13 @@
 """GPModel: the base class of the GP models.
 
 Counterpart of ``gptorch_tpu/models/base.py``: data + kernel + likelihood +
-mean function on one explicit device, the default-noise heuristic, the loss,
+mean function on one explicit device, the default-noise heuristic, the loss
+(at the model's own values or, through ``params=``, at given ones),
 training (``optimize``/``fit_scan``, in place) and numpy-in/numpy-out
-prediction.  The JAX package's PRNG ``key`` arguments become
+prediction and sampling.  The JAX package's PRNG ``key`` arguments become
 ``generator=`` (a ``torch.Generator`` on the model's device), which a
-minibatched model draws its batch from and every other model ignores.
+minibatched model draws its batch from, the samplers draw their normals
+from, and every other model ignores.
 """
 
 from __future__ import annotations
@@ -18,8 +20,10 @@ import torch
 
 from .. import likelihoods as _likelihoods
 from .. import mean_functions as _means
+from .. import sampling as _sampling
 from .. import settings
-from ..module import Module
+from ..functions import cholesky
+from ..module import Module, call_with_trainable
 from ..training import fit as _fit
 from ..util import as_array
 
@@ -148,15 +152,25 @@ class GPModel(Predictive):
         """-(log_likelihood + log_prior)."""
         return -(self.log_likelihood(x=x, y=y, generator=generator) + self.log_prior())
 
-    def loss(self, x=None, y=None, generator=None):
+    def loss(self, x=None, y=None, generator=None, params=None):
         """Public loss: X and Y must agree on the number of data, and a
-        non-finite loss raises ``FloatingPointError``."""
+        non-finite loss raises ``FloatingPointError``.
+
+        :param params: optional dict of raw trainable values keyed by path
+            (see :func:`~gptorch_tpu_torch.module.get_trainable`); the loss
+            is then evaluated at those values through
+            ``torch.func.functional_call``, differentiable in the given
+            tensors, and the model does not change.
+        """
         if x is not None or y is not None:
             xs = x if x is not None else self.X
             ys = y if y is not None else self.Y
             if xs.shape[0] != ys.shape[0]:
                 raise ValueError("X and Y must have same # data.")
-        out = self._loss(x=x, y=y, generator=generator)
+        if params is not None:
+            out = call_with_trainable(self, params, "_loss", x=x, y=y, generator=generator)
+        else:
+            out = self._loss(x=x, y=y, generator=generator)
         if not bool(torch.isfinite(out)):
             raise _fit._nonfinite_loss_error()
         return out
@@ -207,3 +221,29 @@ class GPModel(Predictive):
         return _fit.fit_scan(
             self, method=method, max_iter=max_iter, learning_rate=learning_rate, generator=generator
         )[1]
+
+    @_coerce_io
+    def predict_f_samples(self, input_new, n_samples: int = 1, generator: Optional[torch.Generator] = None):
+        """(n_samples, n*, dy) joint draws from the latent posterior at
+        ``input_new``; the normals come from ``generator`` (default:
+        :func:`~gptorch_tpu_torch.settings.next_default_generator` on the
+        model's device)."""
+        return self._sample(input_new, n_samples, generator, observed=False)
+
+    @_coerce_io
+    def predict_y_samples(self, input_new, n_samples: int = 1, generator: Optional[torch.Generator] = None):
+        """(n_samples, n*, dy) joint draws from the observation posterior
+        (the latent one plus the likelihood's noise)."""
+        return self._sample(input_new, n_samples, generator, observed=True)
+
+    def _sample(self, input_new, n_samples, generator, observed):
+        """μ + chol(Σ)·ε with μ, Σ the full posterior moments and ε standard
+        normals of shape (n_samples,) + μ.shape."""
+        if generator is None:
+            generator = settings.next_default_generator(self.device)
+        mu, sigma = self._predict(input_new, diag=False)
+        if observed:
+            mu, sigma = self.likelihood.predict_mean_covariance(mu, sigma)
+        chol_s = cholesky(sigma)
+        eps = _sampling.standard_normal(generator, (n_samples,) + tuple(mu.shape), mu)
+        return mu + chol_s[None, :, :] @ eps

@@ -18,9 +18,14 @@ bijectors takes the fused radial NLML (:mod:`~gptorch_tpu_torch.ops.gpr_fast`);
 any other kernel without a White component takes the kernel-general fused
 NLML (:mod:`~gptorch_tpu_torch.ops.gpr_general`); both at n ≥
 ``AUTO_FAST_MIN_N`` unless ``fast`` forces them on or off.  Everything else
-takes the generic path (autograd through :func:`cholesky`).  The
-iterative-solver arguments are kept for signature parity:
-``solver="iterative"`` and ``objective="loo"`` are not ported.
+takes the generic path (autograd through :func:`cholesky`).  Off the CPU
+the fused radial path's backward launches the contraction kernel, which
+takes d ≤ 32 and dy ≤ 32 (:mod:`~gptorch_tpu_torch.ops.contract`); wider
+inputs there take the kernel-general path, which computes the same NLML and
+gradient.  ``objective="loo"`` trains on the leave-one-out log predictive
+probability instead (:meth:`GPR.loo_log_likelihood`).  The iterative-solver
+arguments are kept for signature parity: ``solver="iterative"`` is not
+ported.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from .. import mean_functions as _m
 from ..bijectors import Exp
 from ..functions import add_diag, cholesky, lt_log_determinant, trtrs
 from ..likelihoods import FixedNoiseGaussian, Gaussian
+from ..ops.contract import kernel_takes
 from ..ops.gpr_fast import radial_nlml
 from ..ops.gpr_general import general_nlml
 from .base import GPModel
@@ -83,8 +89,8 @@ class GPR(GPModel):
         probe_seed: int = 0,
         device=None,
     ):
-        if objective != "nlml":
-            raise NotImplementedError("objective='loo' is not ported yet")
+        if objective not in ("nlml", "loo"):
+            raise ValueError("objective must be 'nlml' or 'loo'")
         if solver == "iterative":
             raise NotImplementedError("solver='iterative' is not ported yet")
         if solver != "dense":
@@ -108,10 +114,16 @@ class GPR(GPModel):
                 return kind
         return None
 
-    def _fast_eligible(self, x):
+    def _fast_eligible(self, x, y=None):
+        """Whether the loss at (x, y) (default: the training targets) takes
+        the fused radial path.  Off the CPU the contraction kernel must take
+        the shapes (d ≤ 32, dy ≤ 32); wider ones go to the general path."""
         if self.fast is False:
             return False
         if self.fast is None and x.shape[0] < AUTO_FAST_MIN_N:
+            return False
+        dy = (y if y is not None else self.Y).shape[1]
+        if x.device.type != "cpu" and not kernel_takes(x.shape[1], dy):
             return False
         return self._fast_eligible_config()
 
@@ -148,7 +160,7 @@ class GPR(GPModel):
         common signature and unused (no minibatches)."""
         x = x if x is not None else self.X
         y = y if y is not None else self.Y
-        if self._fast_eligible(x):
+        if self._fast_eligible(x, y):
             # x and y are data: detached, so no caller silently gets a zero
             # gradient for them from the closed-form backward.
             kind = self._fast_kind()
@@ -178,10 +190,34 @@ class GPR(GPModel):
                 self.fast_precision,
             )
         num_input, dim_output = y.shape
-        L = cholesky(self._compute_kyy(x=x))
+        L = cholesky(self._compute_kyy(x=x), blocked=False)
         alpha = trtrs(y - self.mean_function(x), L)
         const = -0.5 * dim_output * num_input * math.log(2.0 * math.pi)
         return -0.5 * torch.sum(torch.square(alpha)) - dim_output * lt_log_determinant(L) + const
+
+    def loo_log_likelihood(self, x=None, y=None):
+        """Leave-one-out log predictive probability (GPML §5.4.2, eqs
+        5.10-5.12), Σᵢ log p(yᵢ | X, y₋ᵢ, θ), from one factorization:
+
+            α = K⁻¹(y − m(X)),  c = diag(K⁻¹) = Σₖ (L⁻¹)ₖᵢ²
+            yᵢ − μ₋ᵢ = αᵢ / cᵢ,   σ²₋ᵢ = 1 / cᵢ
+
+        so each point adds −½ log 2π + ½ log cᵢ − αᵢ²/(2cᵢ).  Differentiable
+        (autograd); the factor is blocked from n = 4096 on, as in the JAX
+        package (:func:`~gptorch_tpu_torch.functions.cholesky`)."""
+        x = x if x is not None else self.X
+        y = y if y is not None else self.Y
+        r = y - self.mean_function(x)
+        L = cholesky(self._compute_kyy(x=x))
+        l_inv = trtrs(torch.eye(x.shape[0], dtype=x.dtype, device=x.device), L)
+        c = torch.sum(torch.square(l_inv), dim=0)[:, None]  # diag(K⁻¹), (n, 1)
+        alpha = l_inv.T @ (l_inv @ r)  # K⁻¹ r, (n, dy)
+        return torch.sum(-0.5 * math.log(2.0 * math.pi) + 0.5 * torch.log(c) - torch.square(alpha) / (2.0 * c))
+
+    def _loss(self, x=None, y=None, generator=None):
+        if self.objective == "loo":
+            return -(self.loo_log_likelihood(x=x, y=y) + self.log_prior())
+        return super()._loss(x=x, y=y, generator=generator)
 
     def _compute_kyy(self, x=None):
         """K(X,X) + σ²I.  For an Rbf kernel the noise rides in the Gram's
@@ -208,7 +244,7 @@ class GPR(GPModel):
         """Posterior p(f* | y) at x_new."""
         x = self.X
         k_ys = self.kernel.K(x, x_new)
-        L = cholesky(self._compute_kyy(x=x))
+        L = cholesky(self._compute_kyy(x=x), blocked=False)
         A = trtrs(k_ys, L)
         V = trtrs(self.Y - self.mean_function(x), L)
         mean_f = A.T @ V + self.mean_function(x_new)

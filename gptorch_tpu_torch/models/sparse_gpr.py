@@ -54,7 +54,7 @@ def latent_marginals(kernel, z, q_mu, q_chol, x_new, jitter: float, diag=True):
     :return: (mu (n,), s, kl) with s the (n,) marginal variances
         (``diag=True``) or the (n, n) covariance.
     """
-    Lu = cholesky(kuu_with_jitter(kernel, z, jitter))
+    Lu = cholesky(kuu_with_jitter(kernel, z, jitter), blocked=False)
     alpha = trtrs(kernel.K(z, x_new), Lu).T  # (n, m)
     beta = trtrs(q_chol, Lu)
     gamma = alpha @ beta
@@ -97,13 +97,13 @@ def _low_rank_solve(model, z, x, lam):
     A = L⁻¹Kuf / √λ and ỹ = (y − m(x)) / √λ, for a noise λ that is σ² (VFE:
     then c = LB⁻¹ L⁻¹Kuf (y − m(x)) / σ², the JAX package's c) or, given
     None, FITC's per-point Λ = diag(Kff − Qff) + σ².  Returns (L, LB, c)."""
-    L = cholesky(model._kuu(z))
+    L = cholesky(model._kuu(z), blocked=False)
     V = trtrs(model.kernel.K(z, x), L)
     if lam is None:  # FITC's Λ from V
         lam = model.kernel.Kdiag(x) - torch.sum(torch.square(V), dim=0) + model._sigma2()
     root = torch.sqrt(lam)
     A = V / root
-    LB = cholesky(add_diag(A @ A.T, 1.0))
+    LB = cholesky(add_diag(A @ A.T, 1.0), blocked=False)
     ytil = (model.Y - model.mean_function(x)) / (root[:, None] if root.ndim else root)
     c = trtrs(A @ ytil, LB)
     return L, LB, c
@@ -188,10 +188,10 @@ class VFE(_InducingPointsGP):
 
         Kff_diag = self.kernel.Kdiag(x)
         Kuf = self.kernel.K(self.Z.value, x)
-        L = cholesky(self._kuu(self.Z.value))
+        L = cholesky(self._kuu(self.Z.value), blocked=False)
         A = trtrs(Kuf, L)
         AAT = A @ A.T / sigma2
-        LB = cholesky(add_diag(AAT, 1.0))
+        LB = cholesky(add_diag(AAT, 1.0), blocked=False)
         c = trtrs(A @ err, LB) / sigma2
 
         elbo = -0.5 * d_out * num_data * math.log(2.0 * math.pi)
@@ -218,18 +218,18 @@ class VFE(_InducingPointsGP):
 
         Kff_diag = self.kernel.Kdiag(x)
         Kuf = self.kernel.K(self.Z.value, x)
-        L = cholesky(self._kuu(self.Z.value))
+        L = cholesky(self._kuu(self.Z.value), blocked=False)
         A = trtrs(Kuf, L)  # (m, n): Qff = AᵀA
         AAT = A @ A.T
 
         # log|Qff + σ²I| = n log σ² + log|I + AAᵀ/σ²|
-        LB = cholesky(add_diag(AAT / sigma2, 1.0))
+        LB = cholesky(add_diag(AAT / sigma2, 1.0), blocked=False)
         logdet = n * torch.log(sigma2) + 2.0 * lt_log_determinant(LB)
 
         # the trace slack inflates the noise in the quadratic (Woodbury)
         t = torch.clamp(torch.sum(Kff_diag) - torch.sum(torch.square(A)), min=0.0)
         s2t = sigma2 + t
-        LBt = cholesky(add_diag(AAT / s2t, 1.0))
+        LBt = cholesky(add_diag(AAT / s2t, 1.0), blocked=False)
         c = trtrs(A @ err, LBt) / s2t
         quad = torch.sum(torch.square(err)) / s2t - torch.sum(torch.square(c))
         return -0.5 * d_out * n * math.log(2.0 * math.pi) - 0.5 * d_out * logdet - 0.5 * quad
@@ -287,12 +287,12 @@ class FITC(_InducingPointsGP):
 
         Kff_diag = self.kernel.Kdiag(x)
         Kuf = self.kernel.K(self.Z.value, x)
-        L = cholesky(self._kuu(self.Z.value))
+        L = cholesky(self._kuu(self.Z.value), blocked=False)
         V = trtrs(Kuf, L)
         lam = Kff_diag - torch.sum(torch.square(V), dim=0) + self._sigma2()
 
         A = V / torch.sqrt(lam)
-        LB = cholesky(add_diag(A @ A.T, 1.0))
+        LB = cholesky(add_diag(A @ A.T, 1.0), blocked=False)
         ytil = (y - self.mean_function(x)) / torch.sqrt(lam)[:, None]
         c = trtrs(A @ ytil, LB)
 
@@ -385,7 +385,7 @@ class SVGP(_InducingPointsGP):
         elif y is None:
             raise ValueError("Provide y together with x")
 
-        chol_kuu = cholesky(self._kuu(self.Z.value))
+        chol_kuu = cholesky(self._kuu(self.Z.value), blocked=False)
         f_mean, f_var = self._predict(x, diag=True, chol_kuu=chol_kuu)
         mll = self.likelihood.propagate_log(f_mean, f_var, y) * (self.num_data / x.shape[0])
         return mll - self._kl(chol_kuu)
@@ -433,10 +433,10 @@ class SVGP(_InducingPointsGP):
         z = self.Z.value
         mean, cov = model.predict_f(z, diag=False)
         mean = mean - self.mean_function(z)
-        chol_cov = cholesky(add_diag(cov, 1e-6 * torch.mean(torch.diagonal(cov))))
+        chol_cov = cholesky(add_diag(cov, 1e-6 * torch.mean(torch.diagonal(cov))), blocked=False)
         if self.whiten:
             # the same distribution in v-space: m_v = L₀⁻¹ m_u, chol S_v = L₀⁻¹ chol S_u
-            L0 = cholesky(self._kuu(z))
+            L0 = cholesky(self._kuu(z), blocked=False)
             mean = trtrs(mean, L0)
             chol_cov = trtrs(chol_cov, L0)
         return Param(mean), Param(chol_cov, transform=LowerCholesky())
@@ -451,7 +451,7 @@ class SVGP(_InducingPointsGP):
         """Moments of q(f(x_new)).  Whitened, the projector Kfu Kuu⁻¹ L₀ is
         αᵀ, so the q parameters enter without L₀ solves."""
         z = self.Z.value
-        chol_kuu = cholesky(self._kuu(z)) if chol_kuu is None else chol_kuu
+        chol_kuu = cholesky(self._kuu(z), blocked=False) if chol_kuu is None else chol_kuu
         alpha = trtrs(self.kernel.K(z, x_new), chol_kuu)  # (m, n*): αᵀ
         mu_x = self.mean_function(x_new)
         if self.whiten:
@@ -465,7 +465,7 @@ class SVGP(_InducingPointsGP):
     def _uncertain_wG(self):
         """Non-whitened: w = Kuu⁻¹ q_mu, G = Kuu⁻¹ − Kuu⁻¹SKuu⁻¹.
         Whitened (u = L₀v): w = L₀⁻ᵀ m_v, G = L₀⁻ᵀ(I − S_v)L₀⁻¹."""
-        L0 = cholesky(self._kuu(self.Z.value))
+        L0 = cholesky(self._kuu(self.Z.value), blocked=False)
         Linv = trtrs(torch.eye(L0.shape[0], dtype=L0.dtype, device=L0.device), L0)
         Lq = self.induced_output_chol_cov.value
         mq = self.induced_output_mean.value

@@ -9,11 +9,13 @@ package uses (``"kernel.variance"``, ``"likelihood.variance"``, ...), so
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Tuple
+import copy
+from typing import Callable, Dict, Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from . import settings
 from .param import Param
@@ -42,6 +44,25 @@ class Module(nn.Module):
                 total = total + torch.sum(p.prior.log_prob(p.value))
         return total
 
+    def gradcheck(self, eps=1e-6, atol=1e-5, rtol=1e-3, order=1) -> bool:
+        """Finite-difference check of the gradient of ``_loss`` in the
+        trainable raw values: ``torch.autograd.gradcheck`` (and, for
+        ``order=2``, ``gradgradcheck``) on a float64 copy, the loss
+        evaluated through :func:`call_with_trainable`.  Returns True or
+        raises ``torch.autograd.gradcheck.GradcheckError``."""
+        model = copy.deepcopy(self).to(torch.float64)
+        values = get_trainable(model)
+        keys = list(values)
+        inputs = tuple(values[k].detach().clone().requires_grad_() for k in keys)
+
+        def loss(*raws):
+            return call_with_trainable(model, dict(zip(keys, raws)), "_loss")
+
+        torch.autograd.gradcheck(loss, inputs, eps=eps, atol=atol, rtol=rtol)
+        if order >= 2:
+            torch.autograd.gradgradcheck(loss, inputs, eps=eps, atol=atol, rtol=rtol)
+        return True
+
 
 def get_trainable(module: Module) -> Dict[str, torch.Tensor]:
     """The raw (unconstrained) ``nn.Parameter`` of every trainable Param,
@@ -64,6 +85,60 @@ def set_trainable(module: Module, values: Dict[str, torch.Tensor]) -> Module:
         if p.trainable and path in values:
             p.set_raw(values[path])
     return module
+
+
+def with_trainable(module: Module, values: Mapping[str, torch.Tensor]) -> Module:
+    """A copy of ``module`` with the raw value of each trainable Param whose
+    path is in ``values`` replaced (the copying counterpart of
+    :func:`set_trainable`); ``module`` does not change."""
+    return set_trainable(copy.deepcopy(module), values)
+
+
+def tree_map_params(fn: Callable, module: Module) -> Module:
+    """A copy of ``module`` with every Param ``p`` (of the copy) replaced by
+    ``fn(p)``; ``module`` does not change."""
+    out = copy.deepcopy(module)
+    for path, p in list(out.named_params()):
+        parent, _, name = path.rpartition(".")
+        setattr(out.get_submodule(parent), name, fn(p))
+    return out
+
+
+class _Bound(nn.Module):
+    """A method of a module as a module call, so that ``functional_call``
+    can stand tensors in for the module's parameters."""
+
+    def __init__(self, module, method: str):
+        super().__init__()
+        self.module = module
+        self.method = method
+
+    def forward(self, *args, **kwargs):
+        return getattr(self.module, self.method)(*args, **kwargs)
+
+
+def call_with_parameters(module: nn.Module, tensors: Mapping[str, torch.Tensor], method: str, *args, **kwargs):
+    """``module.<method>(*args, **kwargs)`` with the ``nn.Parameter``s named
+    in ``tensors`` (names as ``module.named_parameters()`` gives them)
+    replaced by those tensors, through ``torch.func.functional_call``."""
+    swap = {f"module.{name}": t for name, t in tensors.items()}
+    return functional_call(_Bound(module, method), swap, args, kwargs)
+
+
+def call_with_trainable(module: Module, values: Mapping[str, torch.Tensor], method: str, *args, **kwargs):
+    """``module.<method>(*args, **kwargs)`` evaluated with the raw value of
+    each trainable Param whose path is in ``values`` replaced by that
+    tensor (``torch.func.functional_call``): the result is differentiable
+    in the given tensors, and ``module`` does not change.  Values that are
+    not tensors are converted to the raw value's dtype and device."""
+    swap = {}
+    for path, p in module.named_params():
+        if p.trainable and path in values:
+            v = values[path]
+            if not isinstance(v, torch.Tensor):
+                v = torch.as_tensor(np.asarray(v), dtype=p.raw.dtype, device=p.raw.device)
+            swap[f"{path}.raw"] = v
+    return call_with_parameters(module, swap, method, *args, **kwargs)
 
 
 def pack_vector(values: Dict[str, torch.Tensor]) -> np.ndarray:

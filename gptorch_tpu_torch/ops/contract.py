@@ -34,6 +34,14 @@ from . import _build
 
 #: Kinds of the kernel, in the order of its compile-time switch.
 KINDS = ("rbf", "matern12", "matern32", "matern52", "rq")
+#: The widest inputs and targets the kernel takes (``kMaxD``/``kMaxDy`` of
+#: the source; checked against the built library when it loads).
+MAX_D, MAX_DY = 32, 32
+
+
+def kernel_takes(d: int, dy: int) -> bool:
+    """Whether the kernel takes inputs of width ``d`` and ``dy`` outputs."""
+    return d <= MAX_D and dy <= MAX_DY
 
 
 def _maps(xs, log_var, kind, log_extra):
@@ -109,6 +117,8 @@ def _kernel_library():
     lib.radial_contract_workspace_bytes.restype = ctypes.c_int64
     lib.radial_contract_error_string.argtypes = [i32]
     lib.radial_contract_error_string.restype = ctypes.c_char_p
+    if (lib.radial_contract_max_d(), lib.radial_contract_max_dy()) != (MAX_D, MAX_DY):
+        raise RuntimeError("radial_contract: the built library's width limits differ from MAX_D, MAX_DY")
     return lib
 
 
@@ -136,10 +146,9 @@ def radial_contractions(Kinv, A, xs, log_var, dy, kind, log_extra=None):
         raise ValueError(f"radial_contractions: unsupported device {xs.device}")
     lib = _kernel_library()
     n, d = xs.shape
-    if d > lib.radial_contract_max_d() or dy > lib.radial_contract_max_dy():
+    if not kernel_takes(d, dy):
         raise ValueError(
-            f"radial_contractions: the kernel takes d <= {lib.radial_contract_max_d()} and "
-            f"dy <= {lib.radial_contract_max_dy()}; got d = {d}, dy = {dy}"
+            f"radial_contractions: the kernel takes d <= {MAX_D} and dy <= {MAX_DY}; got d = {d}, dy = {dy}"
         )
     rowsum = xs.new_empty((n,))
     mx = xs.new_empty((n, d))

@@ -181,9 +181,9 @@ class _RadialNLMLCore(torch.autograd.Function):
         nlml, L, alpha = _fwd_impl(
             kind, log_ell, log_var, log_noise, x, y, jitter, nb, rel_jitter, log_extra
         )
-        ctx.kind, ctx.nb = kind, nb
+        ctx.kind, ctx.nb, ctx.jitter = kind, nb, (jitter, rel_jitter)
         # L is an intermediate, kept on ctx (not saved) so the backward can
-        # drop it before K⁻¹ is allocated.
+        # drop it before K⁻¹ is allocated; a second backward refactors.
         ctx.L = L
         ctx.save_for_backward(log_ell, log_var, log_noise, x, y, alpha, log_extra)
         return nlml
@@ -191,10 +191,11 @@ class _RadialNLMLCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         log_ell, log_var, log_noise, x, y, alpha, log_extra = ctx.saved_tensors
-        L, ctx.L = ctx.L, None
-        if L is None:
-            raise RuntimeError("radial_nlml: the backward runs once (retain_graph is not supported)")
         kind, nb = ctx.kind, ctx.nb
+        L, ctx.L = ctx.L, None
+        if L is None:  # a second backward (retain_graph, gradcheck)
+            jitter, rel_jitter = ctx.jitter
+            _, L, _ = _fwd_impl(kind, log_ell, log_var, log_noise, x, y, jitter, nb, rel_jitter, log_extra)
         dy = y.shape[1]
         A = _solve_lower_t(L, alpha)  # L⁻ᵀα = K⁻¹Y
         Linv = blocked_trtri(L, min(nb, 1024))

@@ -23,6 +23,11 @@ modules, so their bijectors differentiate outside this function.  On the
 card an ``Rbf`` term goes through the hand-written Gram kernel and its
 backward (:mod:`~gptorch_tpu_torch.ops.gram`).
 
+The backward reads the kernel's and the mean's parameters as they were in
+the forward (the tensors a ``functional_call`` stood in, say), and may run
+more than once (``retain_graph``, ``gradcheck``): a second run refactors K,
+since the first drops L.
+
 Restriction, as in the JAX package: no :class:`~gptorch_tpu_torch.kernels.White`
 component (its cross-covariance K(X_R, X) is zeros, so the row rebuild would
 drop its diagonal); :class:`~gptorch_tpu_torch.models.gpr.GPR` routes such
@@ -37,7 +42,7 @@ import math
 
 import torch
 
-from ..module import trainable_parameters
+from ..module import call_with_parameters, trainable_parameters
 from .blocked import _cholesky_into, _solve_lower, _solve_lower_t, blocked_trtri, tril_square_rec
 
 
@@ -61,11 +66,33 @@ def _fwd_impl(kernel, mean, noise, x, y, jitter, nb, rel_jitter, precision):
     return nlml, L, alpha
 
 
+class _ModuleAt:
+    """A kernel or mean function evaluated at given parameter tensors:
+    ``K``/``Kdiag`` (a kernel) or a call (a mean) through
+    :func:`~gptorch_tpu_torch.module.call_with_parameters`."""
+
+    def __init__(self, module, tensors):
+        self.module, self.tensors = module, tensors
+
+    def __call__(self, x):
+        return call_with_parameters(self.module, self.tensors, "forward", x)
+
+    def K(self, *args):
+        return call_with_parameters(self.module, self.tensors, "K", *args)
+
+    def Kdiag(self, *args):
+        return call_with_parameters(self.module, self.tensors, "Kdiag", *args)
+
+
 class _GeneralNLMLCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, kernel, mean, jitter, nb, rel_jitter, precision, noise, x, y, *params):
         nlml, L, alpha = _fwd_impl(kernel, mean, noise, x, y, jitter, nb, rel_jitter, precision)
-        ctx.kernel, ctx.mean, ctx.nb = kernel, mean, nb
+        ctx.config = (jitter, rel_jitter, precision)
+        ctx.nb = nb
+        # the modules with the parameter tensors this forward read
+        ctx.kernel = (kernel, dict(kernel.named_parameters()))
+        ctx.mean = (mean, dict(mean.named_parameters()))
         ctx.params = params  # identify the leaves that kernel.K and mean read
         ctx.L = L  # an intermediate, dropped by the backward before K⁻¹ exists
         ctx.save_for_backward(noise, x, y, alpha)
@@ -74,10 +101,12 @@ class _GeneralNLMLCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         noise, x, y, alpha = ctx.saved_tensors
-        L, ctx.L = ctx.L, None
-        if L is None:
-            raise RuntimeError("general_nlml: the backward runs once (retain_graph is not supported)")
         params, nb = ctx.params, ctx.nb
+        kernel, mean = _ModuleAt(*ctx.kernel), _ModuleAt(*ctx.mean)
+        L, ctx.L = ctx.L, None
+        if L is None:  # a second backward: refactor
+            jitter, rel_jitter, precision = ctx.config
+            _, L, _ = _fwd_impl(kernel, mean, noise, x, y, jitter, nb, rel_jitter, precision)
         n, dy = y.shape
         A = _solve_lower_t(L, alpha)  # K⁻¹ (Y − m(X))
         Linv = blocked_trtri(L, min(nb, 1024))
@@ -96,10 +125,10 @@ class _GeneralNLMLCore(torch.autograd.Function):
                     acc.add_(gp)
 
         with torch.enable_grad():
-            accumulate(ctx.mean(x), -g * A)
+            accumulate(mean(x), -g * A)
             for lo, hi in _chunk_bounds(n):
                 W_c = dy * Kinv[lo:hi] - A[lo:hi] @ A.mT
-                accumulate(ctx.kernel.K(x[lo:hi], x), (0.5 * g) * W_c)
+                accumulate(kernel.K(x[lo:hi], x), (0.5 * g) * W_c)
         tr_W = dy * torch.trace(Kinv) - torch.sum(torch.square(A))
         d_noise = (g * 0.5 * tr_W).reshape(noise.shape).to(noise.dtype)
         return (None,) * 6 + (d_noise, None, None, *grads)

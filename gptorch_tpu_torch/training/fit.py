@@ -20,7 +20,9 @@ Counterpart of ``gptorch_tpu/training/fit.py``:
   non-finite gradient entries replaced by zeros.
 
 Models train in place: their raw ``nn.Parameter``s are the optimizer's
-state, so the trained model is the model passed in.  A minibatched model
+state, so the trained model is the model passed in.  A loop that raises
+``FloatingPointError`` on a non-finite loss first puts back the values the
+model had on entry, as the JAX package's loops leave the model untouched.  A minibatched model
 (SVGP with ``batch_size``) draws each step's batch from the loop's
 ``generator``, whose state advances from step to step: the counterpart of
 the JAX package's ``fold_in(key, idx)``.  L-BFGS (optax's
@@ -141,6 +143,17 @@ def _default_generator(model) -> torch.Generator:
     return torch.Generator(device=model.device).manual_seed(0)
 
 
+def _snapshot(params):
+    """Detached copies of ``params``, for :func:`_restore`."""
+    return [p.detach().clone() for p in params]
+
+
+@torch.no_grad()
+def _restore(params, snapshot):
+    for p, v in zip(params, snapshot):
+        p.copy_(v)
+
+
 def _step(model, opt, generator):
     opt.zero_grad(set_to_none=True)
     lval = model._loss(generator=generator)
@@ -165,13 +178,16 @@ def fit_torch(
 
     Returns (model trained in place, losses ndarray, wall seconds).
     """
-    opt = make_optimizer(method, trainable_parameters(model), learning_rate)
+    params = trainable_parameters(model)
+    start = _snapshot(params)
+    opt = make_optimizer(method, params, learning_rate)
     generator = generator if generator is not None else _default_generator(model)
     losses = np.zeros(max_iter)
     tic = _time.time()
     for idx in range(max_iter):
         losses[idx] = float(_step(model, opt, generator))
         if not np.isfinite(losses[idx]):
+            _restore(params, start)
             raise _nonfinite_loss_error(idx)
         if callback is not None:
             callback(idx, losses[idx])
@@ -196,13 +212,16 @@ def fit_scan(
     The JAX package compiles this loop into one program (``lax.scan``); here
     it runs eagerly.
     """
-    opt = make_optimizer(method, trainable_parameters(model), learning_rate)
+    params = trainable_parameters(model)
+    start = _snapshot(params)
+    opt = make_optimizer(method, params, learning_rate)
     generator = generator if generator is not None else _default_generator(model)
     losses = torch.empty((max_iter,), dtype=model.X.dtype, device=model.device)
     for idx in range(max_iter):
         losses[idx] = _step(model, opt, generator)
     bad = torch.nonzero(~torch.isfinite(losses)).flatten()
     if bad.numel():
+        _restore(params, start)
         raise _nonfinite_loss_error(int(bad[0]))
     return model, losses
 

@@ -29,11 +29,9 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-from torch import nn
-from torch.func import functional_call
 
 from ..functions import cholesky, trtrs
-from ..module import get_trainable
+from ..module import call_with_parameters, get_trainable
 from .fit import _default_generator, make_optimizer
 
 _Q_MEAN = "induced_output_mean"
@@ -82,20 +80,8 @@ def _nat_update(M, S, Lq, g_M, g_S, gamma):
     Sinv_new = Sinv + 2.0 * gamma * g_S / dy
     Sinv_new = 0.5 * (Sinv_new + Sinv_new.T)
     # S_new = Sinv_new⁻¹ = AᵀA with A = L_si⁻¹; M_new = S_new θ₁ by two products
-    A = trtrs(eye, cholesky(Sinv_new))
+    A = trtrs(eye, cholesky(Sinv_new, blocked=False))
     return A.T @ (A @ theta1_new), A.T @ A
-
-
-class _Loss(nn.Module):
-    """The model's loss as a module call, so that ``functional_call`` can
-    stand leaf tensors in for some of its parameters."""
-
-    def __init__(self, model):
-        super().__init__()
-        self.model = model
-
-    def forward(self, generator):
-        return self.model._loss(generator=generator)
 
 
 def make_natgrad_step(
@@ -135,7 +121,6 @@ def make_natgrad_step(
     _, hyper = _split_values(values0, groups)
     hyper_params = list({id(p): p for p in hyper.values()}.values())
     opt = (optimizer or (lambda p: make_optimizer("Adam", p, 1e-2)))(hyper_params)
-    loss_module = _Loss(model)
 
     def step(generator=None, lr=None):
         gamma = nat_lr if lr is None else lr
@@ -146,10 +131,10 @@ def make_natgrad_step(
                 M = params[mn].value.clone().requires_grad_()
                 S = (Lq @ Lq.mT).requires_grad_()
             # the loss as a function of the distribution's parameters
-            swap[f"model.{mn}.raw"] = params[mn].bijector.inverse(M)
-            swap[f"model.{cn}.raw"] = params[cn].bijector.inverse(cholesky(S))
+            swap[f"{mn}.raw"] = params[mn].bijector.inverse(M)
+            swap[f"{cn}.raw"] = params[cn].bijector.inverse(cholesky(S, blocked=False))
             Ms.append(M), Ss.append(S), Lqs.append(Lq)
-        loss = functional_call(loss_module, swap, (generator,))
+        loss = call_with_parameters(model, swap, "_loss", generator=generator)
         grads = torch.autograd.grad(loss, Ms + Ss + hyper_params, allow_unused=True)
         k = len(groups)
         g_Ms, g_Ss, g_hyper = grads[:k], grads[k : 2 * k], grads[2 * k :]
@@ -157,7 +142,7 @@ def make_natgrad_step(
             for (mn, cn), M, S, Lq, g_M, g_S in zip(groups, Ms, Ss, Lqs, g_Ms, g_Ss):
                 M_new, S_new = _nat_update(M, S, Lq, g_M, g_S, gamma)
                 params[mn].set_raw(params[mn].bijector.inverse(M_new))
-                params[cn].set_raw(params[cn].bijector.inverse(cholesky(S_new)))
+                params[cn].set_raw(params[cn].bijector.inverse(cholesky(S_new, blocked=False)))
         for p, g in zip(hyper_params, g_hyper):
             p.grad = g
         opt.step()
@@ -179,7 +164,9 @@ def fit_svgp_natgrad(
 
     A non-finite loss means the previous step left q(u) off the
     positive-definite cone: that step is rolled back (parameters and
-    optimizer state) and γ halved.  Minibatches come from ``generator``
+    optimizer state) and γ halved.  When γ falls below 1e-5 the model and
+    the optimizer are put back to their state on entry and
+    ``FloatingPointError`` is raised.  Minibatches come from ``generator``
     (default: seeded 0 on the model's device).
     """
     step, opt = make_natgrad_step(model, nat_lr, optimizer)
@@ -197,7 +184,7 @@ def fit_svgp_natgrad(
         opt.load_state_dict(opt_state)
 
     gamma = float(nat_lr)
-    prev = snapshot()
+    prev = start = snapshot()
     losses = np.zeros(n_steps)
     i = 0
     while i < n_steps:
@@ -208,6 +195,7 @@ def fit_svgp_natgrad(
             # previous accept: roll back one step and halve the step size
             gamma *= 0.5
             if gamma < 1e-5:
+                restore(start)
                 raise FloatingPointError(
                     "natural-gradient step size collapsed below 1e-5 without recovering a finite loss; "
                     "check the model/likelihood scales"

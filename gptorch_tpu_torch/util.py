@@ -1,8 +1,8 @@
-"""Utilities: tensor coercion, pairwise squared distances and k-means
-centres.
+"""Utilities: tensor coercion, pairwise squared distances, k-means
+centres and PCA.
 
 Counterpart of ``gptorch_tpu/util.py`` (``as_array``, ``squared_distance``,
-``kmeans_centers``).
+``kmeans_centers``, ``PCA``).
 """
 
 from __future__ import annotations
@@ -78,3 +78,14 @@ def kmeans_centers(x: np.ndarray, k: int, perturb_if_fail: bool = False, seed: i
         x_perturbed = x + 1.0e-4 * x_scale * rng.randn(*x.shape)
         centers = kmeans2(x_perturbed, k, minit="++", seed=rng)[0]
     return centers
+
+
+def PCA(X: np.ndarray, q: int) -> np.ndarray:
+    """Project X (n, p) onto its top-q principal directions (the GPLVM's
+    latent initialization), on the host in numpy."""
+    X = np.asarray(X)
+    if q > X.shape[1]:
+        raise ValueError("Cannot have more latent dimensions than observed")
+    evals, evecs = np.linalg.eigh(np.cov(X.T))
+    W = evecs[:, np.argsort(evals)[::-1][:q]]
+    return (X - X.mean(0)).dot(W)

@@ -349,3 +349,134 @@ def test_svgp_minibatch_and_natgrad_on_the_card(cuda):
     assert res["cuda"][0] == pytest.approx(res["cpu"][0], rel=1e-10)
     for k, v in res["cuda"][1].items():
         torch.testing.assert_close(v, res["cpu"][1][k], rtol=1e-7, atol=1e-9)
+
+
+def _card_and_cpu_loss(make, n=4096):
+    """Loss, gradients by path, rbf_gram and radial_contractions launches and
+    the fused-route flag of ``make(device)`` on the card and on the CPU, in
+    float64."""
+    out = {}
+    with _float64(), settings.override(jitter_policy="fixed"):
+        for device in ("cuda", "cpu"):
+            model = make(device)
+            before = (gram.rbf_gram.launches, contract.radial_contractions.launches)
+            loss = model.loss()
+            loss.backward()
+            out[device] = (float(loss.detach()), {k: v.grad.cpu() for k, v in get_trainable(model).items()},
+                           (gram.rbf_gram.launches - before[0], contract.radial_contractions.launches - before[1]),
+                           model._fast_eligible(model.X))
+    return out
+
+
+def _assert_card_matches_cpu(out):
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-10)
+    scale = max(float(g.abs().max()) for g in out["cpu"][1].values())
+    for k, g in out["cuda"][1].items():
+        torch.testing.assert_close(g, out["cpu"][1][k], rtol=0, atol=1e-8 * scale)
+
+
+@pytest.mark.parametrize("d, dy", [(33, 1), (3, 33)], ids=["d=33", "dy=33"])
+def test_wide_inputs_route_to_the_general_path_on_the_card(cuda, d, dy):
+    """At n = 4096 the contraction kernel cannot take d = 33 or dy = 33: the
+    card takes the kernel-general path (no contraction launch), the CPU the
+    fused one, and both give the same loss and gradient."""
+    rng = np.random.RandomState(7)
+    x = rng.randn(4096, d)
+    y = np.sin(x[:, :1] * np.arange(1, dy + 1)) + 0.1 * rng.randn(4096, dy)
+
+    def make(device):
+        kern = kernels.Rbf(d, ARD=True, length_scales=np.linspace(0.8, 1.6, d) * math.sqrt(d / 3))
+        return GPR(x, y, kern, likelihood=likelihoods.Gaussian(0.1), device=device)
+
+    out = _card_and_cpu_loss(make)
+    assert out["cpu"][3] and not out["cuda"][3]
+    assert out["cuda"][2][0] >= 2 and out["cuda"][2][1] == 0 and out["cpu"][2] == (0, 0)
+    _assert_card_matches_cpu(out)
+
+
+@pytest.mark.parametrize("objective", ["nlml", "loo"])
+def test_composite_and_loo_card_match_cpu(cuda, objective):
+    """Linear + Rbf + Constant at n = 4096 (kernel-general path for the
+    NLML; the blocked factor for LOO), card against CPU in float64."""
+    rng = np.random.RandomState(8)
+    x = rng.randn(4096, 3)
+    y = np.sin(x[:, :1]) + 0.1 * rng.randn(4096, 1)
+
+    def make(device):
+        kern = kernels.Linear(3, ARD=True) + kernels.Rbf(3, ARD=True) + kernels.Constant(3)
+        return GPR(x, y, kern, likelihood=likelihoods.Gaussian(0.1), objective=objective, device=device)
+
+    out = _card_and_cpu_loss(make)
+    assert out["cuda"][2][0] >= 1 and out["cuda"][2][1] == 0
+    _assert_card_matches_cpu(out)
+
+
+def _observe_setup(n=2048, nb=2, steps=4, seed=9):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, 3)
+    y = np.sin(x[:, :1]) + 0.1 * rng.randn(n, 1)
+    xb = rng.randn(nb * steps, 3)
+    yb = np.sin(xb[:, :1]) + 0.1 * rng.randn(nb * steps, 1)
+    model = GPR(x, y, kernels.Rbf(3, ARD=True), likelihood=likelihoods.Gaussian(0.1))
+    return model, xb, yb, rng.randn(50, 3)
+
+
+def test_fantasy_chain_matches_refit_on_the_card(cuda):
+    """Four observes of two points into a chain on the card against a fresh
+    factorization of the augmented data, float64."""
+    with _float64(), settings.override(jitter_policy="none"):
+        model, xb, yb, xs = _observe_setup()
+        chain = model.posterior().fantasy_chain(model.num_data + len(xb))
+        for i in range(0, len(xb), 2):
+            assert chain.observe(xb[i:i + 2], yb[i:i + 2]) is chain
+        refit = GPR(np.concatenate([model.X.cpu().numpy(), xb]), np.concatenate([model.Y.cpu().numpy(), yb]),
+                    model.kernel, likelihood=model.likelihood).posterior()
+        with pytest.raises(ValueError, match="capacity"):
+            chain.observe(xb[:1], yb[:1])
+        for got, want in zip(chain.predict_f(xs), refit.predict_f(xs)):
+            np.testing.assert_allclose(got, want, rtol=1e-8, atol=1e-10)
+
+
+def test_serving_condition_on_matches_posterior_on_the_card(cuda):
+    """ServingGPRPosterior.condition_on against GPRPosterior.condition_on,
+    two chained steps, float64 on the card."""
+    with _float64(), settings.override(jitter_policy="none"):
+        model, xb, yb, xs = _observe_setup()
+        post = model.posterior()
+        serving = post.for_serving()
+        for i in (0, 2):
+            post, serving = post.condition_on(xb[i:i + 2], yb[i:i + 2]), serving.condition_on(xb[i:i + 2], yb[i:i + 2])
+        assert serving.Linv.device.type == "cuda"
+        for got, want in zip(serving.predict_f(xs), post.predict_f(xs)):
+            np.testing.assert_allclose(got, want, rtol=1e-8, atol=1e-10)
+
+
+def test_sample_moments_on_the_card(cuda):
+    """predict_f_samples with a generator on the card: 20000 draws at 3
+    points have the posterior's mean and variance within 5 standard errors."""
+    with _float64():
+        model, _, _, xs = _observe_setup(n=500)
+        x = xs[:3]
+        mu, var = model.predict_f(x)
+        S = 20000
+        draws = model.predict_f_samples(x, S, generator=torch.Generator(device="cuda").manual_seed(0))
+        assert draws.shape == (S, 3, 1)
+        assert np.all(np.abs(draws.mean(0) - mu) <= 5 * np.sqrt(var / S))
+        assert np.all(np.abs(draws.var(0) - var) <= 5 * var * np.sqrt(2.0 / (S - 1)))
+
+
+def test_sample_paths_repeat_for_a_seed_on_the_card(cuda):
+    """sample_paths on both posteriors: the same generator seed gives the
+    same paths; another seed other paths; both posteriors agree."""
+    with _float64():
+        model, _, _, xs = _observe_setup()
+        post = model.posterior()
+        serving = post.for_serving()
+        cand = torch.as_tensor(xs, device="cuda")
+
+        def paths(p, seed):
+            return p.sample_paths(8, 256, generator=torch.Generator(device="cuda").manual_seed(seed))(cand)
+
+        a, b, c = paths(post, 0), paths(post, 0), paths(post, 1)
+        assert torch.equal(a, b) and not torch.allclose(a, c)
+        torch.testing.assert_close(paths(serving, 0), a, rtol=1e-8, atol=1e-10)

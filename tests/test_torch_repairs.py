@@ -1,0 +1,176 @@
+"""Three repairs of the port, each held against the JAX package on the CPU
+in float64 (tolerance rel 1e-9 unless a test says otherwise).
+
+1. A posterior is frozen: training the model in place after ``posterior()``
+   or ``for_serving()`` leaves the posterior's predictions as they were,
+   as in the JAX package, where training replaces the model's modules.
+2. A training loop that raises ``FloatingPointError`` on a non-finite loss
+   leaves the model with the values it had on entry, as the JAX loops do.
+3. Off the CPU, inputs wider than the contraction kernel takes (d > 32 or
+   dy > 32) route to the kernel-general path; the CPU route is unchanged.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gptorch_tpu import kernels as jax_kernels
+from gptorch_tpu import likelihoods as jax_likelihoods
+from gptorch_tpu.models import GPR as JaxGPR
+from gptorch_tpu.models import SVGP as JaxSVGP
+from gptorch_tpu.module import get_trainable as jax_get_trainable
+from gptorch_tpu.module import with_trainable as jax_with_trainable
+from gptorch_tpu_torch import convert, kernels, likelihoods
+from gptorch_tpu_torch.models import GPR, SVGP
+from gptorch_tpu_torch.module import get_trainable
+from gptorch_tpu_torch.ops import contract
+from gptorch_tpu_torch.training import fit, natgrad
+
+RTOL = 1e-9
+N, D = 50, 2
+XS = np.random.RandomState(4).randn(7, D)
+
+
+@pytest.fixture(autouse=True)
+def _float64():
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    yield
+    torch.set_default_dtype(old)
+
+
+def _data(n=N, d=D, dy=1, seed=0):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, d)
+    return x, np.sin(x[:, :1] * np.arange(1, dy + 1)) + 0.1 * rng.randn(n, dy)
+
+
+def _pair(kind):
+    """The same model in both packages: an Rbf-ARD GPR with the default
+    noise heuristic (ROADMAP's reproduction of faults 1 and 2), or a
+    whitened SVGP on full batches."""
+    x, y = _data()
+    if kind == "gpr":
+        return (JaxGPR(x, y, jax_kernels.Rbf(D, ARD=True)),
+                GPR(x, y, kernels.Rbf(D, ARD=True), device="cpu"))
+    z = x[::5] + 0.05
+    jm = JaxSVGP(x, y, jax_kernels.Rbf(D, ARD=True), inducing_points=z, whiten=True,
+                 likelihood=jax_likelihoods.Gaussian(0.1))
+    tm = SVGP(x, y, kernels.Rbf(D, ARD=True), inducing_points=z, whiten=True,
+              likelihood=likelihoods.Gaussian(0.1), device="cpu")
+    convert.load_trainable(tm, {k: np.asarray(v) for k, v in jax_get_trainable(jm).items()})
+    return jm, tm
+
+
+def _raws(values):
+    return {k: np.array(v.detach() if isinstance(v, torch.Tensor) else v) for k, v in values.items()}
+
+
+@pytest.mark.parametrize("kind", ["gpr", "svgp_white"])
+def test_posterior_is_frozen_against_training(kind):
+    """posterior() and its for_serving() twin, then optimize("Adam", 50
+    steps, lr 0.05) on both models: the old posteriors still agree with
+    JAX's, while the trained models' own predictions have moved."""
+    jm, tm = _pair(kind)
+    jpost, tpost = jm.posterior(), tm.posterior()
+    pairs = [(jpost, tpost), (jpost.for_serving(), tpost.for_serving())]
+    before = tm.predict_f(XS)
+    jm.optimize("Adam", max_iter=50, learning_rate=0.05, verbose=False)
+    tm.optimize("Adam", max_iter=50, learning_rate=0.05, verbose=False)
+    for jp, tp in pairs:
+        for got, want, was in zip(tp.predict_f(XS), jp.predict_f(XS), before):
+            np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=1e-12)
+            np.testing.assert_allclose(got, was, rtol=RTOL, atol=1e-12)
+        assert all(not p.requires_grad for p in tp.parameters())
+    assert np.abs(tm.predict_f(XS)[0] - before[0]).max() > 1e-3
+
+
+@pytest.mark.parametrize("loop", ["fit_scan", "optimize"])
+def test_nonfinite_loss_leaves_starting_values(loop):
+    """SGD at lr 1e4 for 30 steps diverges in both packages; after the
+    FloatingPointError each model holds its starting raw values."""
+    jm, tm = _pair("gpr")
+    start = _raws(jax_get_trainable(jm))
+    for model in (jm, tm):
+        with pytest.raises(FloatingPointError):
+            if loop == "fit_scan":
+                model.fit_scan("SGD", max_iter=30, learning_rate=1e4)
+            else:
+                model.optimize("SGD", max_iter=30, learning_rate=1e4, verbose=False)
+    want = _raws(jax_get_trainable(jm))
+    got = _raws(get_trainable(tm))
+    assert set(got) == set(start)
+    for path in start:
+        np.testing.assert_array_equal(want[path], start[path])
+        np.testing.assert_allclose(got[path], start[path], rtol=RTOL, atol=0)
+
+
+def test_fit_torch_restores_on_entry_values_not_last_step():
+    """The values put back are those on entry, also after finite steps."""
+    _, tm = _pair("gpr")
+    start = _raws(get_trainable(tm))
+    seen = []
+    with pytest.raises(FloatingPointError):
+        fit.fit_torch(tm, "SGD", max_iter=30, learning_rate=1e4, verbose=False,
+                      callback=lambda i, v: seen.append(v))
+    assert seen, "the first steps were finite"
+    for path, raw in _raws(get_trainable(tm)).items():
+        np.testing.assert_array_equal(raw, start[path])
+
+
+def test_natgrad_collapse_leaves_starting_values():
+    """A loss that is never finite (a NaN target) drives the natural step's
+    γ below 1e-5; the model then holds its starting values, the JAX
+    model's (carried across by load_trainable)."""
+    jm, tm = _pair("svgp_white")
+    tm.Y[3, 0] = float("nan")
+    start = _raws(jax_get_trainable(jm))
+    with pytest.raises(FloatingPointError, match="collapsed"):
+        natgrad.fit_svgp_natgrad(tm, n_steps=5, nat_lr=0.1)
+    for path, raw in _raws(get_trainable(tm)).items():
+        np.testing.assert_allclose(raw, start[path], rtol=RTOL, atol=0)
+
+
+WIDE = [(33, 1), (2, 33)]
+
+
+@pytest.mark.parametrize("d, dy", WIDE, ids=["d=33", "dy=33"])
+def test_wide_inputs_keep_the_fused_route_on_the_cpu(d, dy):
+    """On the CPU the fused path's backward is the plain contraction, which
+    takes any width: the route and the numbers are the JAX package's."""
+    x, y = _data(n=40, d=d, dy=dy, seed=1)
+    common = dict(fast=True, fast_block=16)
+    jm = JaxGPR(x, y, jax_kernels.Rbf(d, ARD=True), likelihood=jax_likelihoods.Gaussian(0.1), **common)
+    tm = GPR(x, y, kernels.Rbf(d, ARD=True), likelihood=likelihoods.Gaussian(0.1), device="cpu", **common)
+    rng = np.random.RandomState(2)
+    values = {k: np.asarray(v) + 0.1 * rng.randn(*np.shape(v)) for k, v in jax_get_trainable(jm).items()}
+    convert.load_trainable(tm, values)
+    big = torch.zeros(4096, d), torch.zeros(4096, dy)
+    assert tm._fast_eligible(tm.X, tm.Y) and tm._fast_eligible(*big)
+    want, want_grads = jax.jit(jax.value_and_grad(lambda v: jax_with_trainable(jm, v)._loss()))(
+        {k: jnp.asarray(v) for k, v in values.items()})
+    got = tm.loss()
+    got.backward()
+    assert float(got.detach()) == pytest.approx(float(want), rel=1e-10)
+    # gradients within 1e-8 of the largest entry: the two packages'
+    # factorizations round differently, and the length scales' gradients
+    # at d = 33 are five orders below the largest
+    scale = max(np.abs(np.asarray(g)).max() for g in want_grads.values())
+    for path, raw in get_trainable(tm).items():
+        np.testing.assert_allclose(raw.grad.numpy(), np.asarray(want_grads[path]), rtol=0, atol=1e-8 * scale)
+
+
+@pytest.mark.parametrize("d, dy, fused", [(33, 1, False), (2, 33, False), (32, 32, True), (8, 1, True)])
+def test_off_cpu_routing_follows_the_contraction_kernel(d, dy, fused):
+    """Off the CPU (meta tensors stand in for the card's: the routing reads
+    only device and shapes) the fused path needs d <= 32 and dy <= 32;
+    wider shapes take the kernel-general path, which computes the same NLML
+    and gradient (held on the card in tests/test_torch_cuda.py)."""
+    x, y = _data(n=8, d=d, dy=dy)
+    tm = GPR(x, y, kernels.Rbf(d, ARD=True), likelihood=likelihoods.Gaussian(0.1), device="cpu")
+    xm, ym = torch.empty(4096, d, device="meta"), torch.empty(4096, dy, device="meta")
+    assert contract.kernel_takes(d, dy) == fused
+    assert tm._fast_eligible(xm, ym) == fused
+    assert tm._general_eligible(xm)
