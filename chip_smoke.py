@@ -26,8 +26,10 @@
 4. Training phase (main path 2): bench.py's headline leg, n = 32768, d = 8,
    Rbf-ARD, Gaussian(0.1), fast=True, fast_block=1024, fast_jitter=1e-3,
    float32, through ``model.fit_scan("Adam", max_iter=4,
-   learning_rate=1e-4)``: one warm call, then one timed call.  Stage times
-   of one value-and-grad.  Checks: finite, decreasing losses; NLML and
+   learning_rate=1e-4)`` (a captured CUDA graph): one warm call, then one
+   timed call, then the first call's steps again eagerly from the same
+   values (losses within 1e-6).  Stage times of one value-and-grad.
+   Checks: finite, decreasing losses; NLML and
    gradient in float32 against the same computation in float64 at
    n = 32768; and at n = 4096 in float64 the card's route against the CPU's
    on the fused radial, generic and kernel-general paths, the composite
@@ -62,10 +64,34 @@
    the trained SVGP, each through posterior() -> for_serving() -> 8 batches
    of 256, serving against the triangular-solve posterior; and one VFE
    value-and-grad at full n.
+9. svgp_captured: the SVGP cell trained eagerly and by fit_scan's captured
+   CUDA graph from one seed: identical minibatch indices (recorded on the
+   card), losses within 1e-5 relative; both loops' ms/step, busy ms and
+   idle share.
+10. dkl_studentt_svgp: DeepKernel(Rbf(2), MLP([9, 64, 64, 2])) with a
+   StudentT(df=4) likelihood in an SVGP at the sparse cell, 50 + 50
+   captured Adam steps, for_serving().predict_f; the ELBO and gradient in
+   float64 card vs CPU at n = 4096, m = 128.
+11. zoo_grams: the eleven new kernels' Grams at (32768, 32768), d = 8,
+   float32, with ms, peak memory and the write bound; each against the
+   CPU in float64 at (2048, 2048).
+12. zoo_training: GPR with Rbf(ARD)·ExpSinSquared(ARD) + SpectralMixture
+   (Q = 4) at bench.py's n = 32768, d = 8, float32, on the kernel-general
+   path, fit_scan L-BFGS (3 iterations; eager, host reads per
+   evaluation), posterior().predict_f; the Gram's and the chunked VJP's
+   times and peaks.  Before it, in float64 at n = 4096, the loss, gradient
+   and three L-BFGS iterations on the card, held against the CPU's loss
+   and gradient and its losses at the card's iterates, which a background
+   process of this script computes while the card trains at full n.
 
-Before each main path runs, every kernel's launch counter is set to 0; it is
-read just after, and each kernel of the path must have launched.  Any failed
-check exits non-zero.  Without a CUDA card it exits 2 and prints no result.
+On the card, fit_scan captures a first-order run as a CUDA graph; the
+training, general-training, SVGP and DKL phases check that it did.  Before
+each main path runs, every kernel's launch counter is set to 0; it is read
+just after, and each kernel of the path must have launched.  A counter
+counts launches made from the host, so a captured run's launches are
+reckoned as the launches recorded in its captured step times the replays.
+Any failed check exits non-zero.  Without a CUDA card it exits 2 and
+prints no result.
 Lines starting with "#" report each measurement; the line before the last
 holds the per-kernel numbers as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -76,8 +102,10 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -112,7 +140,7 @@ F32_UNIT_ROUNDOFF = 2.0 ** -24
 # The sparse paths: bench_svgp.py:21-60's configuration (UCI-protein scale).
 SP_N, SP_D, SP_M, SP_BATCH = 45730, 9, 1024, 4096
 SP_STEPS, SP_LR, SP_JITTER = 50, 1e-2, 1e-6
-SP_PROFILED_STEPS = 10
+SP_PROFILED_STEPS = SP_STEPS  # the timed call's length, so the profiled call replays the same graph
 # The kernel-general training path: the reference example's composite at
 # bench.py's scale, fit_scan Adam (warm call + timed call) then L-BFGS-B,
 # then joint posterior samples.
@@ -122,6 +150,32 @@ GEN_STEPS, GEN_LBFGS_ITERS, GEN_SAMPLES = 2, 2, 64
 # PATH_CANDIDATES candidate inputs.
 OBS_STEPS, OBS_NB = 32, 2
 PATH_SAMPLES, PATH_FEATURES, PATH_CANDIDATES = 16, 1024, 4096
+# Captured against eager: per-step losses of the SVGP cell (float32) within
+# this relative difference (the eager loop's Adam keeps its step count on
+# the host, the captured one on the card, so their bias corrections round
+# apart), after the batches are checked identical; the exact training
+# phase holds its captured losses to the eager ones at EXACT_CAPTURE_RTOL.
+CAPTURE_RTOL, EXACT_CAPTURE_RTOL = 1e-5, 1e-6
+# The kernel zoo on the kernel-general path (bench.py's data): L-BFGS
+# iterations at n = 32768, and the float64 card-vs-CPU check at n = 4096
+# (the loss and gradient, then the losses at the card's L-BFGS iterates,
+# evaluated on the CPU by a background process of this script: one CPU
+# evaluation there takes 15-40 s, and three L-BFGS iterations take 25 of
+# them).
+ZOO_LBFGS_ITERS, ZOO_CHECK_N, ZOO_CHECK_ITERS, ZOO_MIXTURES = 3, 4096, 3, 4
+ZOO_PEAK_GB = 40.0
+ZOO_GRAM_CHECK_N = 2048
+# Deep kernel learning with a Student-t likelihood at the sparse cell:
+# DeepKernel(Rbf(2, ARD), MLP([9, 64, 64, 2])) (gptorch_tpu/nn.py:67's widths).
+DKL_WIDTHS, DKL_DF = [SP_D, 64, 64, 2], 4.0
+DKL_CHECK_N, DKL_CHECK_M = 4096, 128
+# Kuu's relative floor for 1024 inducing points seen through a 2-D feature
+# map: their Rbf Gram has a numerical rank far below 1024, and float32's
+# Cholesky needs a floor near 1e-3 where the sparse cell's 9-D inputs take
+# 1e-6.  The model is built under the adaptive policy (the start of q(u)
+# factors a rank-100 posterior covariance, escalating its jitter as
+# needed) and trained under the fixed one, which a captured step can hold.
+DKL_JITTER = 1e-3
 
 
 class CheckFailed(Exception):
@@ -397,6 +451,36 @@ def read_counts(gram, contract):
     return {"rbf_gram": gram.rbf_gram.launches, "radial_contractions": contract.radial_contractions.launches}
 
 
+def replayed_launches():
+    """The kernel launches of the last ``fit_scan`` call's graph replays:
+    the launches its captured step recorded times the replays ({} for an
+    eager call).  A wrapper's counter counts launches from the host, and a
+    replay launches the recorded kernels from the graph, so a path's
+    launches are its counter plus these."""
+    from gptorch_tpu_torch.training import fit
+
+    run = fit.fit_scan.last_run
+    if not run["captured"]:
+        return {}
+    return {k: v * run["steps"] for k, v in run["launches_per_step"].items()}
+
+
+def add_counts(*counts):
+    out = {"rbf_gram": 0, "radial_contractions": 0}
+    for c in counts:
+        for k, v in c.items():
+            out[k] += v
+    return out
+
+
+def check_captured(what):
+    from gptorch_tpu_torch.training import fit
+
+    run = fit.fit_scan.last_run
+    check(run["captured"], f"{what}: fit_scan ran eagerly on the card")
+    return dict(run["launches_per_step"])
+
+
 def serving_phase(torch, gram, contract):
     from gptorch_tpu_torch import kernels, likelihoods, settings
     from gptorch_tpu_torch.models import GPR
@@ -528,34 +612,64 @@ def training_phase(torch, gram, contract):
                 fast=True, fast_block=TRAIN_NB, fast_jitter=TRAIN_JITTER)
     check(model.device.type == "cuda", "GPR did not land on the card")
     check(model._fast_eligible(model.X), "the flagship model is not on the fused radial path")
+    from gptorch_tpu_torch.module import get_trainable
+    from gptorch_tpu_torch.training import fit
+
     out = {"n": N, "d": D, "dtype": "float32", "method": "Adam", "steps": TRAIN_STEPS, "lr": TRAIN_LR}
+    start = {k: v.detach().clone() for k, v in get_trainable(model).items()}
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    warm = model.fit_scan("Adam", max_iter=TRAIN_STEPS, learning_rate=TRAIN_LR)
+    warm = model.fit_scan("Adam", max_iter=TRAIN_STEPS, learning_rate=TRAIN_LR)  # warm-up step, capture, replays
     torch.cuda.synchronize()
     out["warm_call_s"] = time.perf_counter() - t0
+    out["launches_per_captured_step"] = check_captured("training")
+    # the eager warm-up step and the capture allocate what a step holds;
+    # replays reuse the graph's pool, which the allocator's peak does not see
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
-    torch.cuda.reset_peak_memory_stats()
     zero_counts(gram, contract)
     t0 = time.perf_counter()
-    losses = model.fit_scan("Adam", max_iter=TRAIN_STEPS, learning_rate=TRAIN_LR)
+    losses = model.fit_scan("Adam", max_iter=TRAIN_STEPS, learning_rate=TRAIN_LR)  # replays of the cached graph
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    out["launches"] = read_counts(gram, contract)
-    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = add_counts(read_counts(gram, contract), replayed_launches())
     out["step_ms"] = 1e3 * wall / TRAIN_STEPS
     out["steps_per_s"] = TRAIN_STEPS / wall
     out["losses"] = [float(v) for v in torch.cat([warm, losses]).cpu()]
-    print(f"# training n={N} d={D} f32 fit_scan Adam lr={TRAIN_LR}: warm call of {TRAIN_STEPS} steps "
-          f"{out['warm_call_s']:.3f} s; timed call {out['step_ms']:.2f} ms/step, "
-          f"{out['steps_per_s']:.4f} steps/s, launches {out['launches']}, peak device memory "
+    print(f"# training n={N} d={D} f32 fit_scan Adam lr={TRAIN_LR} (captured CUDA graph): warm call of "
+          f"{TRAIN_STEPS} steps {out['warm_call_s']:.3f} s; timed call {out['step_ms']:.2f} ms/step, "
+          f"{out['steps_per_s']:.4f} steps/s, launches {out['launches']} (recorded per captured step "
+          f"{out['launches_per_captured_step']} x {TRAIN_STEPS} replays), peak device memory "
           f"{out['peak_mem_gb']:.2f} GB, losses {out['losses']}", flush=True)
     for name, count in out["launches"].items():
         check(count > 0, f"the training path never launched {name}")
     check(all(math.isfinite(v) for v in out["losses"]), "non-finite training loss")
     check(out["losses"][-1] < out["losses"][0], "training did not lower the loss")
 
+    # the same first call run eagerly from the same values
+    fit.release_graphs(model)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        for k, v in get_trainable(model).items():
+            v.copy_(start[k])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, eager = fit._fit_scan(model, "Adam", TRAIN_STEPS, TRAIN_LR, None, capture=False)
+    torch.cuda.synchronize()
+    out["eager_step_ms"] = 1e3 * (time.perf_counter() - t0) / TRAIN_STEPS
+    eager = [float(v) for v in eager.cpu()]
+    out["captured_vs_eager_rel"] = max(abs(a - b) / abs(b) for a, b in zip(out["losses"][:TRAIN_STEPS], eager))
+    print(f"# training captured vs eager (the first call's {TRAIN_STEPS} steps from the same values): losses "
+          f"max rel {out['captured_vs_eager_rel']:.3e} (tol {EXACT_CAPTURE_RTOL}); eager step "
+          f"{out['eager_step_ms']:.2f} ms (first eager call), eager losses {eager}", flush=True)
+    check(out["captured_vs_eager_rel"] <= EXACT_CAPTURE_RTOL,
+          f"training captured vs eager losses {out['captured_vs_eager_rel']} > {EXACT_CAPTURE_RTOL}")
+
     out["stages_ms"] = training_stages(torch, model)
+    vg = out["stages_ms"]["value_and_grad (loss + backward)"][0]
+    print(f"# training step: captured {out['step_ms']:.2f} ms vs eager value-and-grad {vg:.2f} ms (CUDA events) "
+          f"and eager step {out['eager_step_ms']:.2f} ms", flush=True)
     out["f32_vs_f64"] = full_width_agreement(torch, model)
     del model
     torch.cuda.empty_cache()
@@ -779,19 +893,21 @@ def general_training_phase(torch, gram, contract):
     out = {"n": N, "d": D, "dtype": "float32", "kernel": "Linear(ARD) + Rbf(ARD) + Constant", "steps": GEN_STEPS,
            "lr": TRAIN_LR}
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    warm = model.fit_scan("Adam", max_iter=GEN_STEPS, learning_rate=TRAIN_LR)
+    warm = model.fit_scan("Adam", max_iter=GEN_STEPS, learning_rate=TRAIN_LR)  # warm-up step, capture, replays
     torch.cuda.synchronize()
     out["warm_call_s"] = time.perf_counter() - t0
+    out["launches_per_captured_step"] = check_captured("general training")
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9  # the warm-up step's and the capture's
 
-    torch.cuda.reset_peak_memory_stats()
     zero_counts(gram, contract)
     t0 = time.perf_counter()
-    losses = model.fit_scan("Adam", max_iter=GEN_STEPS, learning_rate=TRAIN_LR)
+    losses = model.fit_scan("Adam", max_iter=GEN_STEPS, learning_rate=TRAIN_LR)  # replays
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    replayed = replayed_launches()
     out["step_ms"] = 1e3 * wall / GEN_STEPS
-    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     # joint samples and the moments they are held against, at the state
     # Adam left (noise 0.1); L-BFGS-B then moves the noise towards the
     # data's 0.01, where float32 no longer resolves the posterior variance
@@ -808,9 +924,10 @@ def general_training_phase(torch, gram, contract):
     out["lbfgs_s"] = time.perf_counter() - t0
     out["lbfgs_evaluations"] = int(result.nfev)
     out["lbfgs_loss"] = float(result.fun)
-    out["launches"] = read_counts(gram, contract)
+    out["launches"] = add_counts(read_counts(gram, contract), replayed)
     out["losses"] = [float(v) for v in torch.cat([warm, losses]).cpu()]
-    print(f"# general training n={N} d={D} f32 {out['kernel']} fit_scan Adam lr={TRAIN_LR}: warm call of "
+    print(f"# general training n={N} d={D} f32 {out['kernel']} fit_scan Adam lr={TRAIN_LR} (captured CUDA graph, "
+          f"launches recorded per captured step {out['launches_per_captured_step']}): warm call of "
           f"{GEN_STEPS} steps {out['warm_call_s']:.3f} s; timed call {out['step_ms']:.2f} ms/step, peak device "
           f"memory {out['peak_mem_gb']:.2f} GB, losses {out['losses']}; L-BFGS-B max_iter={GEN_LBFGS_ITERS}: "
           f"{out['lbfgs_s']:.3f} s, {out['lbfgs_evaluations']} evaluations, loss {out['lbfgs_loss']!r}; "
@@ -1157,12 +1274,14 @@ def svgp_training_phase(torch, gram, contract):
         out["build_s"] = time.perf_counter() - t0
         check(model.device.type == "cuda", "SVGP did not land on the card")
         gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         warm = model.fit_scan("Adam", max_iter=SP_STEPS, learning_rate=SP_LR, generator=gen)
         torch.cuda.synchronize()
         out["warm_call_s"] = time.perf_counter() - t0
+        out["launches_per_captured_step"] = check_captured("svgp training")
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9  # the warm-up step's and the capture's
 
-        torch.cuda.reset_peak_memory_stats()
         zero_counts(gram, contract)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -1171,8 +1290,7 @@ def svgp_training_phase(torch, gram, contract):
         end.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        out["launches"] = read_counts(gram, contract)
-        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["launches"] = add_counts(read_counts(gram, contract), replayed_launches())
         out["step_ms"] = 1e3 * wall / SP_STEPS
         out["steps_per_s"] = SP_STEPS / wall
         out["event_span_ms_per_step"] = start.elapsed_time(end) / SP_STEPS
@@ -1193,7 +1311,8 @@ def svgp_training_phase(torch, gram, contract):
         out["rbf_gram_device_ms_per_step"] = k1
         print(f"# svgp device time per step in rbf_gram's kernel (K1): {k1:.4f} ms "
               f"({100 * k1 / out['device_ms_per_step']:.2f} % of busy)", flush=True)
-        print(f"# svgp training n={SP_N} d={SP_D} m={SP_M} batch={SP_BATCH} f32 fit_scan Adam lr={SP_LR}: "
+        print(f"# svgp training n={SP_N} d={SP_D} m={SP_M} batch={SP_BATCH} f32 fit_scan Adam lr={SP_LR} "
+              f"(captured CUDA graph, launches recorded per captured step {out['launches_per_captured_step']}): "
               f"build {out['build_s']:.3f} s, warm call of {SP_STEPS} steps {out['warm_call_s']:.3f} s; timed "
               f"call {out['step_ms']:.4f} ms/step, {out['steps_per_s']:.2f} steps/s, CUDA-event span "
               f"{out['event_span_ms_per_step']:.4f} ms/step; device busy {out['device_ms_per_step']:.4f} ms/step "
@@ -1431,6 +1550,471 @@ def sparse_card_vs_cpu(torch, gram, contract):
     return out
 
 
+def svgp_captured_phase(torch, gram, contract, captured):
+    """The SVGP cell (as in :func:`svgp_training_phase`) trained from one
+    generator seed by the eager loop (``fit._fit_scan(..., capture=False)``,
+    the loop a captured run is held against) and by ``fit_scan``'s captured
+    graph, on two fresh models, SP_STEPS Adam steps each.  Every batch's
+    indices are recorded on the card (a wrapper of
+    ``sparse_gpr.minibatch_indices`` that the capture records too) and must
+    be identical, and each step's loss must agree within CAPTURE_RTOL (or be
+    bitwise equal).  Then the eager loop's ms/step, busy ms and idle share
+    on a fresh model, beside the captured numbers of ``captured`` (the
+    svgp_training phase's)."""
+    from gptorch_tpu_torch import kernels, settings
+    from gptorch_tpu_torch.models import SVGP, sparse_gpr
+    from gptorch_tpu_torch.training import fit
+
+    x, y, z = sparse_data(SP_N, SP_D, SP_M, np.float32)
+
+    def make():
+        return SVGP(x, y, kernels.Rbf(SP_D, ARD=True), inducing_points=z, batch_size=SP_BATCH, jitter=SP_JITTER)
+
+    rows = SP_STEPS + 1  # the captured run's warm-up step writes a row first
+    original = sparse_gpr.minibatch_indices
+    runs = {}
+    with settings.override(jitter_policy="fixed"):
+        for mode in ("eager", "captured"):
+            rec = torch.full((rows, SP_BATCH), -1, dtype=torch.long, device="cuda")
+            count = torch.zeros((1,), dtype=torch.long, device="cuda")
+
+            def recording(generator, n, batch_size, device, rec=rec, count=count):
+                idx = original(generator, n, batch_size, device)
+                rec.index_copy_(0, torch.remainder(count, rows), idx[None])
+                count.add_(1)
+                return idx
+
+            sparse_gpr.minibatch_indices = recording
+            try:
+                model = make()
+                gen = torch.Generator(device="cuda").manual_seed(0)
+                _, losses = fit._fit_scan(model, "Adam", SP_STEPS, SP_LR, gen, capture=mode == "captured")
+                torch.cuda.synchronize()
+            finally:
+                sparse_gpr.minibatch_indices = original
+            check(fit.fit_scan.last_run["captured"] == (mode == "captured"), f"svgp_captured: {mode} run")
+            batches = rec[1:] if mode == "captured" else rec[:SP_STEPS]
+            runs[mode] = (losses.cpu().numpy().astype(np.float64), batches.cpu(), gen.get_state())
+            del model
+        (l_e, b_e, g_e), (l_c, b_c, g_c) = runs["eager"], runs["captured"]
+        same_batches = bool(torch.equal(b_e, b_c)) and bool((b_e >= 0).all())
+        bitwise = bool(np.array_equal(l_e, l_c))
+        rel = float(np.max(np.abs(l_c - l_e) / np.abs(l_e)))
+        out = {"steps": SP_STEPS, "identical_batches": same_batches, "generator_states_equal": bool(torch.equal(g_e, g_c)),
+               "losses_bitwise_equal": bitwise, "losses_max_rel": rel, "tol": CAPTURE_RTOL}
+
+        # the eager loop's speed on a fresh model (no recorder)
+        model = make()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        fit._fit_scan(model, "Adam", SP_STEPS, SP_LR, gen, capture=False)
+        torch.cuda.synchronize()
+        zero_counts(gram, contract)
+        t0 = time.perf_counter()
+        fit._fit_scan(model, "Adam", SP_STEPS, SP_LR, gen, capture=False)
+        torch.cuda.synchronize()
+        out["eager_step_ms"] = 1e3 * (time.perf_counter() - t0) / SP_STEPS
+        eager_counts = read_counts(gram, contract)
+        _, busy, _ = device_busy_ms(torch, lambda: fit._fit_scan(model, "Adam", SP_STEPS, SP_LR, gen, capture=False))
+        out["eager_device_ms_per_step"] = busy / SP_STEPS
+        out["eager_idle_share"] = 1.0 - out["eager_device_ms_per_step"] / out["eager_step_ms"]
+        del model
+    out["captured_step_ms"] = captured["step_ms"]
+    out["captured_device_ms_per_step"] = captured["device_ms_per_step"]
+    out["captured_idle_share"] = captured["idle_share"]
+    out["eager_launches_per_step"] = {k: v / SP_STEPS for k, v in eager_counts.items()}
+    out["captured_launches_per_step"] = captured["launches_per_captured_step"]
+    out["launches"] = add_counts(eager_counts, {k: v * SP_STEPS for k, v in out["captured_launches_per_step"].items()})
+    print(f"# svgp_captured n={SP_N} m={SP_M} batch={SP_BATCH} f32 Adam, {SP_STEPS} steps from seed 0: batches "
+          f"identical {same_batches}, generator states equal {out['generator_states_equal']}, losses bitwise equal "
+          f"{bitwise}, max rel {rel:.3e} (tol {CAPTURE_RTOL}); eager {out['eager_step_ms']:.4f} ms/step, busy "
+          f"{out['eager_device_ms_per_step']:.4f} ms/step, idle share {out['eager_idle_share']:.3f}, K1 launches "
+          f"{out['eager_launches_per_step']['rbf_gram']:.0f}/step from the host; captured {out['captured_step_ms']:.4f} "
+          f"ms/step, busy {out['captured_device_ms_per_step']:.4f} ms/step, idle share "
+          f"{out['captured_idle_share']:.3f}, K1 launches {out['captured_launches_per_step']['rbf_gram']}/step "
+          f"recorded in the graph x {SP_STEPS} replays", flush=True)
+    check(same_batches, "svgp_captured: the captured run drew other minibatches than the eager run")
+    check(out["generator_states_equal"], "svgp_captured: the generators ended in different states")
+    check(bitwise or rel <= CAPTURE_RTOL, f"svgp_captured: losses differ by {rel} > {CAPTURE_RTOL}")
+    check(out["captured_launches_per_step"]["rbf_gram"] > 0 and eager_counts["rbf_gram"] > 0,
+          "svgp_captured: rbf_gram was not launched")
+    return out
+
+
+def dkl_studentt_svgp_phase(torch, gram, contract):
+    """Robust deep kernel learning at the sparse cell: SVGP(n = 45730,
+    d = 9, m = 1024 inducing points in input space, batch 4096,
+    DeepKernel(Rbf(2, ARD), MLP([9, 64, 64, 2])), StudentT(df = 4), jitter
+    DKL_JITTER, float32; built under the adaptive policy, trained under the
+    fixed one), ``fit_scan`` Adam lr 1e-2 (a warm call
+    and a timed call of SP_STEPS, captured), then ``for_serving()`` and
+    ``predict_f`` on 256 queries; then the full-batch ELBO and gradient in
+    float64 at n = 4096, m = 128, card against CPU."""
+    from gptorch_tpu_torch import kernels, likelihoods, nn, settings
+    from gptorch_tpu_torch.models import SVGP
+    from gptorch_tpu_torch.module import get_trainable
+
+    x, y, z = sparse_data(SP_N, SP_D, SP_M, np.float32)
+    _, _, xq = make_data(SP_N, SP_D, np.float32, seed=3)
+
+    def make(x, y, z, device=None):
+        kern = kernels.DeepKernel(kernels.Rbf(2, ARD=True), nn.MLP(DKL_WIDTHS))
+        return SVGP(x, y, kern, inducing_points=z, likelihood=likelihoods.StudentT(df=DKL_DF), batch_size=SP_BATCH,
+                    jitter=DKL_JITTER, device=device)
+
+    out = {"n": SP_N, "m": SP_M, "batch": SP_BATCH, "widths": DKL_WIDTHS, "df": DKL_DF, "steps": SP_STEPS,
+           "jitter": DKL_JITTER}
+    model = make(x, y, z)
+    with settings.override(jitter_policy="fixed"):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        warm = model.fit_scan("Adam", max_iter=SP_STEPS, learning_rate=SP_LR, generator=gen)
+        torch.cuda.synchronize()
+        out["warm_call_s"] = time.perf_counter() - t0
+        out["launches_per_captured_step"] = check_captured("dkl_studentt_svgp")
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9  # the warm-up step's and the capture's
+        zero_counts(gram, contract)
+        t0 = time.perf_counter()
+        losses = model.fit_scan("Adam", max_iter=SP_STEPS, learning_rate=SP_LR, generator=gen)
+        torch.cuda.synchronize()
+        out["step_ms"] = 1e3 * (time.perf_counter() - t0) / SP_STEPS
+        replayed = replayed_launches()
+        out["losses"] = [float(v) for v in torch.cat([warm, losses]).cpu()]
+        t0 = time.perf_counter()
+        serving = model.posterior().for_serving()
+        torch.cuda.synchronize()
+        out["serving_setup_ms"] = 1e3 * (time.perf_counter() - t0)
+        mu, var = serving.predict_f(xq[0])
+        out["predict_f_ms"] = time_ms(lambda: serving.predict_f(xq[0]), 10)
+        out["launches"] = add_counts(read_counts(gram, contract), replayed)
+        del model, serving
+    first, last = np.mean(out["losses"][:10]), np.mean(out["losses"][-10:])
+    print(f"# dkl_studentt_svgp n={SP_N} d={SP_D} m={SP_M} batch={SP_BATCH} f32 DeepKernel(Rbf(2), MLP({DKL_WIDTHS})) "
+          f"StudentT(df={DKL_DF}) fit_scan Adam lr={SP_LR} (captured CUDA graph, launches recorded per captured step "
+          f"{out['launches_per_captured_step']}): warm call {out['warm_call_s']:.3f} s, timed {out['step_ms']:.4f} "
+          f"ms/step, peak {out['peak_mem_gb']:.3f} GB; losses first 10 mean {first:.4f}, last 10 mean {last:.4f}; "
+          f"serving set-up {out['serving_setup_ms']:.2f} ms, predict_f per {Q} {out['predict_f_ms']:.4f} ms "
+          f"(CUDA events); launches {out['launches']}", flush=True)
+    check(all(math.isfinite(v) for v in out["losses"]), "non-finite DKL training loss")
+    check(last < first, "DKL training did not lower the loss")
+    check(np.isfinite(mu).all() and np.isfinite(var).all() and mu.shape == (Q, 1) and (var > 0).all(),
+          "bad DKL serving output")
+    check(out["launches"]["rbf_gram"] > 0, "the DKL path never launched rbf_gram")
+
+    xc, yc, zc = sparse_data(DKL_CHECK_N, SP_D, DKL_CHECK_M, np.float64, seed=5)
+    res = {}
+    with default_dtype(torch, torch.float64):
+        for device in ("cuda", "cpu"):
+            m = make(xc, yc, zc, device)
+            with settings.override(jitter_policy="fixed"):
+                loss = m.loss(x=m.X, y=m.Y)
+            loss.backward()
+            raws = get_trainable(m)
+            res[device] = (float(loss.detach()), np.concatenate([raws[k].grad.cpu().numpy().ravel()
+                                                                 for k in sorted(raws)]))
+            del m, loss, raws
+    value_rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    grad_rel = float(np.abs(res["cuda"][1] - res["cpu"][1]).max() / np.abs(res["cpu"][1]).max())
+    out["card_vs_cpu"] = {"value_rel": value_rel, "grad_rel": grad_rel, "tol": F64_REL_TOL}
+    print(f"# dkl_studentt_svgp f64 card vs CPU n={DKL_CHECK_N} m={DKL_CHECK_M}: -ELBO rel {value_rel:.3e}, "
+          f"gradient rel {grad_rel:.3e} (tol {F64_REL_TOL})", flush=True)
+    check(value_rel <= F64_REL_TOL and grad_rel <= F64_REL_TOL, "DKL card vs CPU disagree")
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_gram_cases(kernels, nn, d):
+    """The eleven kernels of the zoo at width d, with the input each takes
+    ("x": the data; "fidelity": the data with a level column; "line": its
+    first column; "task": a column of task ids); the wrappers wrap Rbf."""
+    return [
+        ("Periodic", kernels.Periodic(d, length_scales=2.0), "x"),
+        ("ExpSinSquared(ARD)", kernels.ExpSinSquared(d, length_scales=np.linspace(0.8, 1.6, d), period=2.0,
+                                                      ARD=True), "x"),
+        ("SpectralMixture(Q=4)", kernels.SpectralMixture(d, ZOO_MIXTURES,
+                                                         means=0.1 + 0.02 * np.arange(4 * d).reshape(4, d),
+                                                         scales=0.2 + 0.01 * np.arange(4 * d).reshape(4, d)), "x"),
+        ("ActiveDims(Rbf(4))", kernels.ActiveDims(kernels.Rbf(4, ARD=True), [0, 2, 4, 6], d), "x"),
+        ("DeepKernel(Rbf(2), MLP([8, 64, 64, 2]))", kernels.DeepKernel(kernels.Rbf(2, ARD=True),
+                                                                       nn.MLP([d, 64, 64, 2])), "x"),
+        ("InputWarp(Rbf)", kernels.InputWarp(kernels.Rbf(d, ARD=True), a=0.8, b=1.3, lo=-5.0, hi=5.0), "x"),
+        ("MultiFidelity(Rbf, Rbf)", kernels.MultiFidelity([kernels.Rbf(d), kernels.Rbf(d, length_scales=2.0)],
+                                                          rho=0.6), "fidelity"),
+        ("Cosine", kernels.Cosine(d, length_scales=3.0), "x"),
+        ("ArcCosine(1)", kernels.ArcCosine(d, order=1), "x"),
+        ("ChangePoints(Rbf, Rbf)", kernels.ChangePoints([kernels.Rbf(1), kernels.Rbf(1, length_scales=0.5)], [0.0]),
+         "line"),
+        ("Coregion(4, rank 2)", kernels.Coregion(4, rank=2), "task"),
+    ]
+
+
+def zoo_input(torch, kind, x):
+    if kind == "fidelity":
+        return torch.cat([x, (torch.arange(x.shape[0], device=x.device) % 2).to(x.dtype)[:, None]], dim=1)
+    if kind == "line":
+        return x[:, :1].contiguous()
+    if kind == "task":
+        return (torch.arange(x.shape[0], device=x.device) % 4).to(x.dtype)[:, None]
+    return x
+
+
+def zoo_grams_phase(torch, gram, contract):
+    """The eleven new kernels' Grams at (32768, 32768), d = 8, float32, on
+    bench.py's data: warm CUDA-event ms, peak device memory and the bound
+    (the n² output written once at 3.35 TB/s); each held against the CPU in
+    float64 at (2048, 2048) within F64_REL_TOL's 1e-10 scale."""
+    import copy
+
+    from gptorch_tpu_torch import kernels, nn
+
+    x, _, _ = make_data(N, D, np.float32)
+    xt = torch.as_tensor(x, device="cuda")
+    rows, counts = [], []
+    bound, bound_by = bound_ms(N * N * 4, 0, "float32")
+    for name, kern, kind in zoo_gram_cases(kernels, nn, D):
+        kern = kern.to("cuda")
+        a = zoo_input(torch, kind, xt)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(gram, contract)
+            ms = time_ms(lambda: kern.K(a), 2)
+            counts.append(read_counts(gram, contract))
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            k64 = copy.deepcopy(kern).double()
+            a64 = a[:ZOO_GRAM_CHECK_N].double()
+            card = k64.K(a64).cpu()
+            cpu = copy.deepcopy(k64).cpu().K(a64.cpu())
+        rel = float((card - cpu).abs().max() / cpu.abs().max())
+        rows.append({"kernel": name, "ms": ms, "peak_gb": peak, "bound_ms": bound, "bound_by": bound_by,
+                     "f64_card_vs_cpu_rel": rel, "k1_launches": counts[-1]["rbf_gram"]})
+        print(f"# zoo gram {name} ({N}, {N}) d={D} f32: {ms:.3f} ms (bound {bound:.3f} ms, {bound_by}; "
+              f"{ms / bound:.1f}x), peak {peak:.2f} GB, K1 launches {counts[-1]['rbf_gram']}; f64 card vs CPU at "
+              f"({ZOO_GRAM_CHECK_N}, {ZOO_GRAM_CHECK_N}) rel {rel:.3e} (tol 1e-10)", flush=True)
+        check(rel <= 1e-10, f"zoo gram {name}: f64 card vs CPU {rel} > 1e-10")
+        del kern, a, k64, a64, card, cpu
+        torch.cuda.empty_cache()
+    return {"grams": rows, "launches": add_counts(*counts)}
+
+
+def zoo_kernel(kernels, x, y):
+    """The pattern-discovery composite: Rbf(ARD)·ExpSinSquared(ARD) +
+    SpectralMixture(Q = 4) started by ``spectral_mixture_init``."""
+    d = x.shape[1]
+    return (kernels.Rbf(d, ARD=True) * kernels.ExpSinSquared(d, ARD=True)
+            + kernels.spectral_mixture_init(x, y, ZOO_MIXTURES))
+
+
+def zoo_model(n, dtype, device=None):
+    """GPR on bench.py's data (n points, d = 8, seed 0) with
+    :func:`zoo_kernel`, Gaussian(0.1) and fast_jitter 1e-3: the
+    kernel-general path.  Returns (model, query batches)."""
+    from gptorch_tpu_torch import kernels, likelihoods
+    from gptorch_tpu_torch.models import GPR
+
+    x, y, xq = make_data(n, D, dtype)
+    model = GPR(x, y, zoo_kernel(kernels, x, y), likelihood=likelihoods.Gaussian(0.1), fast_jitter=TRAIN_JITTER,
+                device=device)
+    return model, xq
+
+
+def zoo_check_run(torch, model):
+    """At the model's start, the loss and gradient; then ZOO_CHECK_ITERS
+    iterations of the L-BFGS optimizer that ``fit_scan("LBFGS")`` runs,
+    stepped here so that each iterate's raw values are kept.  Returns
+    (loss, gradient vector, the loss after each iteration, the iterates)."""
+    from gptorch_tpu_torch.module import get_trainable, trainable_parameters
+    from gptorch_tpu_torch.training import fit
+
+    model.zero_grad(set_to_none=True)
+    loss = model.loss()
+    loss.backward()
+    raws = get_trainable(model)
+    grad = np.concatenate([raws[k].grad.double().cpu().numpy().ravel() for k in sorted(raws)])
+    model.zero_grad(set_to_none=True)
+    opt = fit.make_optimizer("LBFGS", trainable_parameters(model))
+    closure = fit._fixed_objective(model, opt, torch.Generator(device=model.device).manual_seed(0))
+    losses, iterates = [], []
+    for _ in range(ZOO_CHECK_ITERS):
+        opt.step(closure)
+        losses.append(opt.last[0])  # the line search's value at the new iterate
+        iterates.append({k: v.detach().cpu().numpy().tolist() for k, v in get_trainable(model).items()})
+    return float(loss.detach()), grad, losses, iterates
+
+
+def zoo_cpu_reference(path):
+    """The CPU side of zoo_training's float64 check at n = 4096: the loss
+    and gradient at the start, and the loss at each L-BFGS iterate the card
+    reached (read from ``path + ".in"``), written to ``path`` as JSON.  Run
+    by a background process of this script (``--zoo-cpu-reference PATH``)
+    while the card trains at full n."""
+    import torch
+
+    from gptorch_tpu_torch.module import get_trainable, set_trainable
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 1))  # the card's host thread keeps one core
+    with open(path + ".in") as f:
+        iterates = json.load(f)
+    with default_dtype(torch, torch.float64):
+        model, _ = zoo_model(ZOO_CHECK_N, np.float64, "cpu")
+        loss = model.loss()
+        loss.backward()
+        raws = get_trainable(model)
+        grad = np.concatenate([raws[k].grad.numpy().ravel() for k in sorted(raws)])
+        losses = []
+        with torch.no_grad():
+            for values in iterates:
+                set_trainable(model, {k: np.asarray(v) for k, v in values.items()})
+                losses.append(float(model.loss()))
+    with open(path, "w") as f:
+        json.dump({"loss": float(loss.detach()), "grad": grad.tolist(), "losses": losses}, f)
+    return 0
+
+
+def start_zoo_reference(iterates):
+    """Start :func:`zoo_cpu_reference` on ``iterates`` in a background
+    process (no card: ``CUDA_VISIBLE_DEVICES`` empty); returns (process,
+    result path, log path)."""
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    path, log = os.path.join(workdir, "zoo_cpu.json"), os.path.join(workdir, "zoo_cpu.log")
+    with open(path + ".in", "w") as f:
+        json.dump(iterates, f)
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--zoo-cpu-reference", path],
+                                stdout=f, stderr=subprocess.STDOUT, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    return proc, path, log
+
+
+def zoo_stages(torch, model):
+    """Warm CUDA-event times of the composite Gram K(X) and of the chunked
+    kernel VJP of the general path's backward (K(X_R, X) rebuilt under
+    autograd per chunk of ``gpr_general.chunk_rows`` rows, differentiated
+    against a cotangent chunk), with their peak memory, each beside its
+    bound: the n² float32 output (or cotangent) moved once, or per Gram
+    entry 10d + 8 + Q(8d + 5) operations (Rbf 3d + 3, ExpSinSquared(ARD)
+    7d + 3, SpectralMixture 8d + 5 per component, the product and the sum
+    one each; a sine, cosine or exponential counted as one), three times
+    that for the VJP (the rebuild and a backward of at least twice its
+    work), at 67 TFLOP/s."""
+    from gptorch_tpu_torch.module import trainable_parameters
+    from gptorch_tpu_torch.ops import gpr_general
+
+    kernel, X = model.kernel, model.X
+    params = trainable_parameters(kernel)
+    ops_per_entry = 10 * D + 8 + ZOO_MIXTURES * (8 * D + 5)
+    out = {}
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: kernel.K(X), 2)
+        out["gram"] = (ms, *bound_ms((N * D + N * N) * 4, N * N * ops_per_entry, "float32"),
+                       torch.cuda.max_memory_allocated() / 1e9)
+    rows = gpr_general.chunk_rows(kernel, X)
+    cot = torch.full((rows, N), 1e-3, device="cuda", dtype=X.dtype)
+
+    def chunked_vjp():
+        for lo, hi in gpr_general._chunk_bounds(N, rows):
+            torch.autograd.grad(kernel.K(X[lo:hi], X), params, grad_outputs=cot[: hi - lo])
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(chunked_vjp, 1)
+    out["chunked_vjp"] = (ms, *bound_ms((N * D + N * N) * 4, 3 * N * N * ops_per_entry, "float32"),
+                          torch.cuda.max_memory_allocated() / 1e9)
+    del cot
+    torch.cuda.empty_cache()
+    for name, (ms, bound, by, peak) in out.items():
+        print(f"# zoo stage {name}: {ms:.3f} ms (bound {bound:.3f} ms, {by}; {ms / bound:.1f}x), peak {peak:.2f} GB"
+              + (f", {rows}-row chunks" if name == "chunked_vjp" else ""), flush=True)
+    out["chunk_rows"] = rows
+    return out
+
+
+def zoo_training_phase(torch, gram, contract):
+    """Pattern discovery at bench.py's scale: GPR(n = 32768, d = 8,
+    float32) with :func:`zoo_kernel` on the kernel-general path, trained by
+    ``fit_scan(method="LBFGS", max_iter=ZOO_LBFGS_ITERS)`` (eager, host
+    reads per evaluation), then ``posterior().predict_f`` on 256 queries;
+    the Gram's and the chunked VJP's times.  First, in float64 at
+    n = 4096, the loss, gradient and ZOO_CHECK_ITERS L-BFGS iterations on
+    the card, held against the CPU's loss and gradient at the start and
+    its losses at the card's iterates, which a background process of this
+    script computes while the card trains at full n."""
+    from gptorch_tpu_torch import settings
+    from gptorch_tpu_torch.training import fit
+
+    with default_dtype(torch, torch.float64):
+        model, _ = zoo_model(ZOO_CHECK_N, np.float64)
+        card = zoo_check_run(torch, model)
+        del model
+    torch.cuda.empty_cache()
+    proc, path, log = start_zoo_reference(card[3])
+    try:
+        model, xq = zoo_model(N, np.float32)
+        check(model._general_eligible(model.X) and not model._fast_eligible(model.X),
+              "the zoo model is not on the kernel-general path")
+        out = {"n": N, "d": D, "dtype": "float32", "kernel": "Rbf(ARD)*ExpSinSquared(ARD) + SpectralMixture(Q=4)",
+               "iterations": ZOO_LBFGS_ITERS}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(gram, contract)
+        t0 = time.perf_counter()
+        losses = model.fit_scan("LBFGS", max_iter=ZOO_LBFGS_ITERS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["launches"] = read_counts(gram, contract)
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["evaluations"] = list(fit.fit_scan.last_run["evaluations"])
+        out["lbfgs_s"] = wall
+        out["ms_per_evaluation"] = 1e3 * wall / sum(out["evaluations"])
+        out["losses"] = [float(v) for v in losses.cpu()]
+        with settings.override(jitter_policy="fixed"):
+            t0 = time.perf_counter()
+            post = model.posterior()
+            mu, var = post.predict_f(xq[0])
+            out["posterior_predict_s"] = time.perf_counter() - t0
+            del post
+        torch.cuda.empty_cache()
+        print(f"# zoo training n={N} d={D} f32 {out['kernel']} fit_scan LBFGS max_iter={ZOO_LBFGS_ITERS} (eager: "
+              f"host reads per evaluation): {out['lbfgs_s']:.3f} s, evaluations per iteration {out['evaluations']}, "
+              f"{out['ms_per_evaluation']:.1f} ms per evaluation, losses {out['losses']}, peak device memory "
+              f"{out['peak_mem_gb']:.2f} GB (limit {ZOO_PEAK_GB}), launches {out['launches']}; posterior() + "
+              f"predict_f of {Q}: {out['posterior_predict_s']:.3f} s", flush=True)
+        check(all(math.isfinite(v) for v in out["losses"]), "non-finite zoo training loss")
+        check(all(b < a for a, b in zip(out["losses"], out["losses"][1:])), "the zoo L-BFGS losses do not decrease")
+        check(out["peak_mem_gb"] <= ZOO_PEAK_GB, f"zoo training peak {out['peak_mem_gb']} GB > {ZOO_PEAK_GB}")
+        check(out["launches"]["rbf_gram"] > 0, "the zoo training path never launched rbf_gram")
+        check(np.isfinite(mu).all() and np.isfinite(var).all() and mu.shape == (Q, 1), "bad zoo predict_f output")
+        out["stages"] = zoo_stages(torch, model)
+        del model
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        code = proc.wait(timeout=600)
+        out["cpu_reference_wait_s"] = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if code != 0:
+        with open(log) as f:
+            print(f.read(), file=sys.stderr)
+    check(code == 0, f"the CPU reference process failed (exit {code})")
+    with open(path) as f:
+        ref = json.load(f)
+    value_rel = abs(card[0] - ref["loss"]) / abs(ref["loss"])
+    grad_rel = float(np.abs(card[1] - np.asarray(ref["grad"])).max() / np.abs(ref["grad"]).max())
+    iter_rel = max(abs(a - b) / abs(b) for a, b in zip(card[2], ref["losses"]))
+    out["card_vs_cpu"] = {"value_rel": value_rel, "grad_rel": grad_rel, "lbfgs_losses_rel": iter_rel,
+                          "card_losses": card[2], "cpu_losses": ref["losses"], "tol": F64_REL_TOL}
+    print(f"# zoo f64 card vs CPU n={ZOO_CHECK_N}: loss rel {value_rel:.3e}, gradient rel {grad_rel:.3e} at the "
+          f"start; the losses after {ZOO_CHECK_ITERS} L-BFGS iterations on the card against the CPU's at the same "
+          f"iterates rel {iter_rel:.3e} (tol {F64_REL_TOL}; card {card[2]}, CPU {ref['losses']}); waited "
+          f"{out['cpu_reference_wait_s']:.1f} s for the CPU", flush=True)
+    check(max(value_rel, grad_rel, iter_rel) <= F64_REL_TOL, "zoo card vs CPU disagree")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1463,11 +2047,17 @@ def main() -> int:
     del svgp
     torch.cuda.empty_cache()
     svgp_training["card_vs_cpu"] = sparse_card_vs_cpu(torch, gram, contract)
+    svgp_captured = svgp_captured_phase(torch, gram, contract, svgp_training)
+    dkl = dkl_studentt_svgp_phase(torch, gram, contract)
+    zoo_grams = zoo_grams_phase(torch, gram, contract)
+    zoo_training = zoo_training_phase(torch, gram, contract)
 
     paths = {"serving": serving["launches"], "training": training["launches"],
              "general_training": general_training["launches"], "observe_loop": observe_loop["launches"],
              "svgp_training": svgp_training["launches"], "vfe_serving": vfe_serving["launches"],
-             "svgp_serving": svgp_serving["launches"]}
+             "svgp_serving": svgp_serving["launches"], "svgp_captured": svgp_captured["launches"],
+             "dkl_studentt_svgp": dkl["launches"], "zoo_grams": zoo_grams["launches"],
+             "zoo_training": zoo_training["launches"]}
     g, c = gram_rows[0], contract_rows[0]
     kernels_line = {"kernels": [
         {
@@ -1507,7 +2097,9 @@ def main() -> int:
     print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, peak device memory: serving "
           f"{serving['peak_mem_gb']:.1f} GB, training {training['peak_mem_gb']:.1f} GB, general training "
           f"{general_training['peak_mem_gb']:.1f} GB, observe loop {observe_loop['peak_mem_gb']:.1f} GB, svgp "
-          f"training {svgp_training['peak_mem_gb']:.3f} GB; total {time.perf_counter() - t_start:.1f} s", flush=True)
+          f"training {svgp_training['peak_mem_gb']:.3f} GB, dkl {dkl['peak_mem_gb']:.3f} GB, zoo training "
+          f"{zoo_training['peak_mem_gb']:.1f} GB; launches count each captured step's recorded launches once per "
+          f"replay; total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -1516,6 +2108,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--zoo-cpu-reference"]:
+        sys.exit(zoo_cpu_reference(sys.argv[2]))
     try:
         sys.exit(main())
     except CheckFailed as exc:

@@ -14,6 +14,7 @@ from . import (
     likelihoods,
     mean_functions,
     models,
+    nn,
     ops,
     priors,
     sampling,
@@ -32,6 +33,7 @@ __all__ = [
     "likelihoods",
     "mean_functions",
     "models",
+    "nn",
     "ops",
     "priors",
     "sampling",

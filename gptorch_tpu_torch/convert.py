@@ -2,7 +2,9 @@
 
 The JAX package's ``gptorch_tpu.module.get_trainable(model)`` maps dotted
 paths (``"kernel.length_scales"``, ``"likelihood.variance"``, an SVGP's
-``"Z"``, ``"induced_output_mean"`` and ``"induced_output_chol_cov"``, ...)
+``"Z"``, ``"induced_output_mean"`` and ``"induced_output_chol_cov"``, a deep
+kernel's ``"kernel.net.layer0.w"``, a SpectralMixture's
+``"kernel.weights"``/``"means"``/``"scales"``, ``"likelihood.df"``, ...)
 to raw, unconstrained arrays (a LowerCholesky parameter's raw value is
 ``tril(L, -1) + diag(log diag L)`` in both packages).  :func:`load_trainable` loads such a dictionary, as
 numpy arrays, into the port's model built with the same structure.

@@ -148,6 +148,13 @@ class GPModel(Predictive):
     def log_likelihood(self, x=None, y=None, generator=None):
         raise NotImplementedError
 
+    def _reads_jitter_policy(self) -> bool:
+        """Whether the training loss factors through
+        :func:`~gptorch_tpu_torch.functions.cholesky` and so reads
+        ``settings.config.jitter_policy`` (whose ``adaptive`` probe is a
+        host loop that a captured CUDA graph cannot hold)."""
+        return True
+
     def _loss(self, x=None, y=None, generator=None):
         """-(log_likelihood + log_prior)."""
         return -(self.log_likelihood(x=x, y=y, generator=generator) + self.log_prior())
@@ -187,10 +194,11 @@ class GPModel(Predictive):
         """Fit the hyperparameters by minimizing the loss, in place.
 
         First-order methods (Adam, SGD, RMSprop, Adagrad, Adadelta, Adamax)
-        run :func:`~gptorch_tpu_torch.training.fit.fit_torch` and return
+        and LBFGS (optax's rule and zoom line search) run
+        :func:`~gptorch_tpu_torch.training.fit.fit_torch` and return
         (losses, wall seconds); scipy methods (L-BFGS-B, BFGS, CG, ...) run
         :func:`~gptorch_tpu_torch.training.fit.fit_scipy` and return its
-        OptimizeResult.  LBFGS is not ported.
+        OptimizeResult.
         """
         if method in _fit.SCIPY_METHODS:
             if verbose:
@@ -215,8 +223,9 @@ class GPModel(Predictive):
         learning_rate: Optional[float] = None,
         generator: Optional[torch.Generator] = None,
     ):
-        """Train in place with no host read per step
-        (:func:`~gptorch_tpu_torch.training.fit.fit_scan`); returns the
+        """Train in place with no host read per step (on the card a
+        first-order method replays a captured CUDA graph; see
+        :func:`~gptorch_tpu_torch.training.fit.fit_scan`); returns the
         losses as a tensor on the model's device."""
         return _fit.fit_scan(
             self, method=method, max_iter=max_iter, learning_rate=learning_rate, generator=generator

@@ -155,6 +155,11 @@ class GPR(GPModel):
             ok = isinstance(self.kernel.alpha.bijector, Exp)
         return ok
 
+    def _reads_jitter_policy(self) -> bool:
+        """The fused paths factor with fixed jitters; the generic path and
+        the leave-one-out objective go through ``functions.cholesky``."""
+        return self.objective == "loo" or not (self._fast_eligible(self.X) or self._general_eligible(self.X))
+
     def log_likelihood(self, x=None, y=None, generator=None):
         """The log marginal likelihood; ``generator`` is accepted for the
         common signature and unused (no minibatches)."""

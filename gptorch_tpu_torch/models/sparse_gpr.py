@@ -84,10 +84,16 @@ def init_inducing_points(x, num_inducing_points=None, inducing_points=None):
     return kmeans_centers(x.reshape(len(x), -1), num_inducing_points, perturb_if_fail=True)
 
 
+def minibatch_indices(generator, n: int, batch_size: int, device):
+    """``batch_size`` of the indices 0..n−1 drawn without replacement from
+    ``generator`` (on ``device``)."""
+    return torch.randperm(n, generator=generator, device=device)[:batch_size]
+
+
 def draw_minibatch(generator, X, Y, batch_size: int):
     """``batch_size`` rows of (X, Y) drawn without replacement from
     ``generator`` (on X's device)."""
-    idx = torch.randperm(X.shape[0], generator=generator, device=X.device)[:batch_size]
+    idx = minibatch_indices(generator, X.shape[0], batch_size, X.device)
     return X[idx], Y[idx]
 
 

@@ -14,7 +14,8 @@ function.  The hand-derived radial contraction is replaced by
               W    = dy·K⁻¹ − A Aᵀ
               ∂NLML/∂θ_kernel = ½⟨W, ∂K/∂θ⟩, summed over row chunks R: the
                   (cs, n) rows K(X_R, X) are rebuilt per chunk and
-                  differentiated against the cotangent ½·W_R
+                  differentiated against the cotangent ½·W_R, with cs
+                  sized by the kernel's saved temporaries (:func:`chunk_rows`)
               ∂NLML/∂mean(X)  = −A
               ∂NLML/∂σ_n²     = ½(dy·tr K⁻¹ − ‖A‖²)
 
@@ -49,6 +50,34 @@ from .blocked import _cholesky_into, _solve_lower, _solve_lower_t, blocked_trtri
 def _chunk_bounds(n: int, target: int = 4096):
     """(lo, hi) row-chunk bounds covering [0, n)."""
     return [(lo, min(n, lo + target)) for lo in range(0, n, target)]
+
+
+#: Rows of one probe of :func:`chunk_rows`.
+_PROBE_ROWS = 8
+
+
+def chunk_rows(kernel, x) -> int:
+    """Rows per chunk of the backward's rebuild of K(X_R, X), sized by the
+    kernel: autograd keeps a kernel's temporaries for the VJP (one or two
+    (rows, n) tensors for a radial kernel, several per mixture component
+    and input dimension for SpectralMixture), so the bytes it saves for a
+    probe of ``_PROBE_ROWS`` rows set the chunk.  A chunk saves at most
+    max(2·n²·itemsize, 256 MiB) -- two n² buffers, beside the K⁻¹ the
+    backward holds -- and has between 1 and 4096 rows (the JAX package's
+    chunk)."""
+    n = x.shape[0]
+    saved = 0
+
+    def pack(t):
+        nonlocal saved
+        saved += t.numel() * t.element_size()
+        return t
+
+    with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        kernel.K(x[:_PROBE_ROWS], x)
+    per_row = saved / min(n, _PROBE_ROWS)
+    budget = max(2 * n * n * x.element_size(), 2 ** 28)
+    return int(min(4096, max(1, budget // max(per_row, 1.0))))
 
 
 def _fwd_impl(kernel, mean, noise, x, y, jitter, nb, rel_jitter, precision):
@@ -126,7 +155,7 @@ class _GeneralNLMLCore(torch.autograd.Function):
 
         with torch.enable_grad():
             accumulate(mean(x), -g * A)
-            for lo, hi in _chunk_bounds(n):
+            for lo, hi in _chunk_bounds(n, chunk_rows(kernel, x)):
                 W_c = dy * Kinv[lo:hi] - A[lo:hi] @ A.mT
                 accumulate(kernel.K(x[lo:hi], x), (0.5 * g) * W_c)
         tr_W = dy * torch.trace(Kinv) - torch.sum(torch.square(A))

@@ -23,12 +23,20 @@ def _nodes_weights(order: int):
     return z, w / math.sqrt(2.0 * math.pi)
 
 
+@functools.lru_cache(maxsize=None)
+def _nodes_weights_on(order: int, dtype, device):
+    """The rule's nodes and weights as tensors, made once per dtype and
+    device: a loss that a CUDA graph captures then copies nothing from the
+    host."""
+    z, w = _nodes_weights(order)
+    return torch.as_tensor(z, dtype=dtype, device=device), torch.as_tensor(w, dtype=dtype, device=device)
+
+
 def _abscissae(mean, var, order):
     """The quadrature points f_k = mean + √var·z_k, shape (order,) +
     mean.shape, and the weights, on ``mean``'s device and dtype."""
-    z, w = _nodes_weights(order)
-    z = torch.as_tensor(z, dtype=mean.dtype, device=mean.device).reshape((-1,) + (1,) * mean.ndim)
-    w = torch.as_tensor(w, dtype=mean.dtype, device=mean.device)
+    z, w = _nodes_weights_on(order, mean.dtype, mean.device)
+    z = z.reshape((-1,) + (1,) * mean.ndim)
     return mean[None, ...] + torch.sqrt(torch.clamp(var, min=0.0))[None, ...] * z, w
 
 

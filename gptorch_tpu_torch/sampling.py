@@ -10,8 +10,10 @@ with ω_j ~ N(0, I) for Rbf and, for the Matérn family, the multivariate
 Student-t with 2ν degrees of freedom: ω = z·√(2ν/u), z ~ N(0, I),
 u ~ χ²_{2ν}.  Since 2ν ∈ {1, 3, 5}, u is drawn exactly as the sum of 2ν
 squared standard normals, which take a ``torch.Generator`` (torch's gamma
-sampler takes none).  The JAX package's PRNG keys become generators; the
-two packages draw different numbers from the same seed.
+sampler takes none).  For SpectralMixture the frequencies come from its
+own Gaussian-mixture spectral density, on unscaled inputs.  The JAX
+package's PRNG keys become generators; the two packages draw different
+numbers from the same seed.
 
 Every draw goes through :func:`standard_normal` or :func:`uniform`, so a
 caller can hold the draws fixed.  ``pathwise_gpr_samples`` and
@@ -25,7 +27,7 @@ import math
 import torch
 
 from . import settings
-from .kernels import Exp, Matern32, Matern52, Rbf
+from .kernels import Exp, Matern32, Matern52, Rbf, SpectralMixture
 
 __all__ = ["RandomFourierFeatures", "standard_normal", "uniform"]
 
@@ -47,41 +49,64 @@ def uniform(generator: torch.Generator, shape, like: torch.Tensor) -> torch.Tens
 
 
 class RandomFourierFeatures:
-    """Feature map φ with E[φ(x)ᵀφ(x')] = k(x, x') for an Rbf or Matérn
-    (Exp/Matern12, Matern32, Matern52) kernel.
+    """Feature map φ with E[φ(x)ᵀφ(x')] = k(x, x') for an Rbf, Matérn
+    (Exp/Matern12, Matern32, Matern52) or SpectralMixture kernel; any other
+    kernel raises ``TypeError``.
 
     :param generator: a ``torch.Generator`` on the kernel's device; default
         :func:`~gptorch_tpu_torch.settings.next_default_generator` there.
 
-    The frequencies and phases are drawn once; the length scales and the
-    variance are read at every call, so φ is differentiable in x and in the
-    hyperparameters.  SpectralMixture's branch comes with that kernel
-    (ROADMAP item 8); any other kernel raises ``TypeError``.
+    For Rbf and the Matérn family the frequencies and phases are drawn
+    once, and the length scales and the variance are read at every call,
+    so φ is differentiable in x and in the hyperparameters.  For
+    SpectralMixture each feature draws a component q ~ Cat(w/Σw), random
+    signs s ∈ {±1}^d and ω = 2π(s⊙μ_q + √v_q⊙z), z ~ N(0, I) (the signs
+    realize Π_d cos(2π τ_d μ_qd) = E_s[cos(2π Σ_d s_d τ_d μ_qd)]); the
+    weights, means and scales are read once, at construction.
     """
 
     def __init__(self, kernel, num_features: int, generator: torch.Generator = None):
-        nu = None
-        if not isinstance(kernel, Rbf):
-            nu = next((v for cls, v in _MATERN_NU if isinstance(kernel, cls)), None)
-            if nu is None:
-                raise TypeError(
-                    "RandomFourierFeatures supports Rbf and the Matérn family; got "
-                    f"{type(kernel).__name__} (SpectralMixture comes with ROADMAP item 8)"
-                )
         self.kernel = kernel
         self.num_features = int(num_features)
-        like = kernel.variance.value.detach()
+        if isinstance(kernel, SpectralMixture):
+            like = kernel.weights.value.detach()
+        else:
+            nu = None
+            if not isinstance(kernel, Rbf):
+                nu = next((v for cls, v in _MATERN_NU if isinstance(kernel, cls)), None)
+                if nu is None:
+                    raise TypeError(
+                        "RandomFourierFeatures supports Rbf, the Matérn family and SpectralMixture; got "
+                        f"{type(kernel).__name__}"
+                    )
+            like = kernel.variance.value.detach()
         if generator is None:
             generator = settings.next_default_generator(like.device)
-        self.omega = standard_normal(generator, (kernel.input_dim, self.num_features), like)
-        if nu is not None:
-            df = int(2 * nu)
-            u = torch.sum(torch.square(standard_normal(generator, (self.num_features, df), like)), dim=1)
-            self.omega = self.omega * torch.sqrt(df / u)[None, :]
-        self.phase = 2.0 * math.pi * uniform(generator, (self.num_features,), like)
+        F = self.num_features
+        if isinstance(kernel, SpectralMixture):
+            w = kernel.weights.value.detach()
+            mu, v = kernel.means.value.detach(), kernel.scales.value.detach()
+            q = torch.multinomial(w / torch.sum(w), F, replacement=True, generator=generator)
+            s = 2.0 * torch.randint(0, 2, (F, kernel.input_dim), generator=generator, device=like.device).to(
+                like.dtype) - 1.0
+            z = standard_normal(generator, (F, kernel.input_dim), like)
+            self.omega = (2.0 * math.pi) * (s * mu[q] + torch.sqrt(v[q]) * z).T
+            self._amplitude2 = torch.sum(w)
+        else:
+            self.omega = standard_normal(generator, (kernel.input_dim, F), like)
+            if nu is not None:
+                df = int(2 * nu)
+                u = torch.sum(torch.square(standard_normal(generator, (F, df), like)), dim=1)
+                self.omega = self.omega * torch.sqrt(df / u)[None, :]
+            self._amplitude2 = None  # the variance, read at every call
+        self.phase = 2.0 * math.pi * uniform(generator, (F,), like)
 
     def __call__(self, x):
         """φ(x): (n, F)."""
-        var = self.kernel.variance.value.reshape(())
-        proj = (x / self.kernel.length_scales.value) @ self.omega + self.phase
+        if self._amplitude2 is None:
+            var = self.kernel.variance.value.reshape(())
+            x = x / self.kernel.length_scales.value
+        else:
+            var = self._amplitude2
+        proj = x @ self.omega + self.phase
         return torch.sqrt(2.0 * var / self.num_features) * torch.cos(proj)

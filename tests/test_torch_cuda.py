@@ -14,10 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from gptorch_tpu_torch import kernels, likelihoods, mean_functions, settings
+from gptorch_tpu_torch import kernels, likelihoods, mean_functions, nn, sampling, settings
 from gptorch_tpu_torch.models import FITC, GPR, SVGP, VFE
 from gptorch_tpu_torch.module import get_trainable
 from gptorch_tpu_torch.ops import contract, gpr_fast, gram
+from gptorch_tpu_torch.training import fit
 
 
 @pytest.fixture
@@ -369,7 +370,7 @@ def _card_and_cpu_loss(make, n=4096):
 
 
 def _assert_card_matches_cpu(out):
-    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-10)
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-8)
     scale = max(float(g.abs().max()) for g in out["cpu"][1].values())
     for k, g in out["cuda"][1].items():
         torch.testing.assert_close(g, out["cpu"][1][k], rtol=0, atol=1e-8 * scale)
@@ -480,3 +481,230 @@ def test_sample_paths_repeat_for_a_seed_on_the_card(cuda):
         a, b, c = paths(post, 0), paths(post, 0), paths(post, 1)
         assert torch.equal(a, b) and not torch.allclose(a, c)
         torch.testing.assert_close(paths(serving, 0), a, rtol=1e-8, atol=1e-10)
+
+
+def _captured_and_eager(make, method, steps, lr, policy="fixed"):
+    """(eager losses, captured losses, eager values, captured values,
+    generator states after each, fit_scan.last_run of the captured call)
+    of two models made by ``make()``, trained from one generator seed."""
+    out = []
+    with settings.override(jitter_policy=policy):
+        for capture in (False, True):
+            model = make()
+            gen = torch.Generator(device="cuda").manual_seed(11)
+            _, losses = fit._fit_scan(model, method, steps, lr, gen, capture)
+            out.append((losses.cpu(), {k: v.detach().cpu() for k, v in get_trainable(model).items()},
+                        gen.get_state(), fit.fit_scan.last_run, model))
+    return out
+
+
+def _svgp_card():
+    return _sparse_models("cuda", whiten=False)[0]["svgp"]
+
+
+@pytest.mark.parametrize("method", ["Adam", "SGD", "RMSprop", "Adagrad", "Adadelta", "Adamax"])
+def test_captured_fit_scan_matches_eager_on_the_card(cuda, method):
+    """A minibatched SVGP in float64: the captured graph's replays draw the
+    same batches (the generator ends in the same state) and take the same
+    steps as the eager loop."""
+    lr = 1e-4 if method == "SGD" else 1e-2  # heavy-ball SGD at 1e-2 diverges on this ELBO
+    with _float64():
+        (l0, v0, g0, _, _), (l1, v1, g1, run, model) = _captured_and_eager(_svgp_card, method, 12, lr)
+    assert run["captured"] and run["steps"] == 12 and run["launches_per_step"]["rbf_gram"] >= 2
+    assert torch.equal(g0, g1)
+    torch.testing.assert_close(l1, l0, rtol=1e-10, atol=0)
+    for k in v0:
+        torch.testing.assert_close(v1[k], v0[k], rtol=1e-9, atol=1e-12)
+    with settings.override(jitter_policy="fixed"):
+        assert fit.captures(model, method)
+
+
+def test_captured_fit_scan_reuses_its_graph_and_resets_the_optimizer(cuda):
+    """A second call with the same key replays the cached graph from a fresh
+    optimizer state: from the same values and generator state it repeats
+    the first call's losses bit for bit."""
+    with _float64(), settings.override(jitter_policy="fixed"):
+        model = _svgp_card()
+        start = {k: v.detach().clone() for k, v in get_trainable(model).items()}
+        first = model.fit_scan("Adam", max_iter=6, generator=torch.Generator(device="cuda").manual_seed(2))
+        before = gram.rbf_gram.launches
+        with torch.no_grad():
+            for k, v in get_trainable(model).items():
+                v.copy_(start[k])
+        again = model.fit_scan("Adam", max_iter=6, generator=torch.Generator(device="cuda").manual_seed(2))
+        assert gram.rbf_gram.launches == before  # replays only: nothing launched from the host
+        assert torch.equal(first, again)
+        assert len(fit._GRAPHS[model]) == 1
+        model.fit_scan("Adam", max_iter=6, learning_rate=0.05, generator=torch.Generator(device="cuda"))
+        assert len(fit._GRAPHS[model]) == 2
+        fit.release_graphs(model)
+        assert model not in fit._GRAPHS
+
+
+@pytest.mark.parametrize("route", ["fused", "general"])
+def test_captured_exact_training_matches_eager_on_the_card(cuda, route):
+    """GPR training captured on the fused radial path (K1 and K2 in the
+    graph) and the kernel-general path (K1 and the chunked VJP), float64,
+    under the default adaptive jitter policy, which neither path reads."""
+    rng = np.random.RandomState(12)
+    x, y = rng.randn(512, 3), rng.randn(512, 1)
+
+    def make():
+        kern = kernels.Rbf(3, ARD=True) if route == "fused" else kernels.Rbf(3, ARD=True) + kernels.Linear(3)
+        return GPR(x, y, kern, likelihood=likelihoods.Gaussian(0.1), fast=True, fast_block=128)
+
+    with _float64():
+        (l0, v0, _, _, _), (l1, v1, _, run, model) = _captured_and_eager(make, "Adam", 4, 1e-2, policy="adaptive")
+    assert fit.captures(model, "Adam") and run["captured"]
+    launches = run["launches_per_step"]
+    if route == "fused":
+        assert launches == {"rbf_gram": 1, "radial_contractions": 1}
+    else:  # the Gram, the chunk-size probe and the one VJP chunk
+        assert launches == {"rbf_gram": 3, "radial_contractions": 0}
+    torch.testing.assert_close(l1, l0, rtol=1e-10, atol=0)
+    for k in v0:
+        torch.testing.assert_close(v1[k], v0[k], rtol=1e-9, atol=1e-12)
+
+
+def test_adaptive_policy_and_lbfgs_run_eagerly_on_the_card(cuda):
+    with _float64():
+        model = _svgp_card()
+        assert not fit.captures(model, "Adam") and not fit.captures(model, "LBFGS")
+        model.fit_scan("Adam", max_iter=2, generator=torch.Generator(device="cuda"))
+        assert fit.fit_scan.last_run["captured"] is False
+
+
+def test_captured_fit_scan_restores_on_a_nonfinite_loss(cuda):
+    with _float64(), settings.override(jitter_policy="fixed"):
+        model = _svgp_card()
+        start = {k: v.detach().clone() for k, v in get_trainable(model).items()}
+        with pytest.raises(FloatingPointError):
+            model.fit_scan("SGD", max_iter=5, learning_rate=1e12, generator=torch.Generator(device="cuda"))
+        for k, v in get_trainable(model).items():
+            assert torch.equal(v.detach(), start[k])
+
+
+def test_lbfgs_card_matches_cpu(cuda):
+    """Five L-BFGS iterations of a GPR in float64, the card's route (K1)
+    against the CPU's: the same losses and trained values."""
+    rng = np.random.RandomState(13)
+    x = rng.randn(300, 3)
+    y = np.sin(x[:, :1]) + 0.1 * rng.randn(300, 1)
+    out = {}
+    with _float64():
+        for device in ("cuda", "cpu"):
+            model = GPR(x, y, kernels.Rbf(3, ARD=True), likelihood=likelihoods.Gaussian(0.1), device=device)
+            losses = model.fit_scan("LBFGS", max_iter=5)
+            out[device] = (losses.cpu(), {k: v.detach().cpu() for k, v in get_trainable(model).items()})
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-9, atol=0)
+    for k, v in out["cuda"][1].items():
+        torch.testing.assert_close(v, out["cpu"][1][k], rtol=0, atol=1e-7)
+
+
+def _zoo(d):
+    """The eleven zoo kernels (the wrappers around Rbf) and the input each
+    takes, for (n, d) real inputs x."""
+    return {
+        "Periodic": (kernels.Periodic(d, length_scales=2.0), "x"),
+        "ExpSinSquared": (kernels.ExpSinSquared(d, length_scales=np.linspace(0.8, 1.6, d), period=2.0, ARD=True),
+                          "x"),
+        "SpectralMixture": (kernels.SpectralMixture(d, 4, means=0.1 + 0.05 * np.arange(4 * d).reshape(4, d),
+                                                    scales=0.2 + 0.01 * np.arange(4 * d).reshape(4, d)), "x"),
+        "ActiveDims": (kernels.ActiveDims(kernels.Rbf(2, ARD=True), [0, d - 1], d), "x"),
+        "DeepKernel": (kernels.DeepKernel(kernels.Rbf(2, ARD=True), nn.MLP([d, 16, 2])), "x"),
+        "InputWarp": (kernels.InputWarp(kernels.Rbf(d, ARD=True), a=0.8, b=1.3, lo=-4.0, hi=4.0), "x"),
+        "MultiFidelity": (kernels.MultiFidelity([kernels.Rbf(d), kernels.Rbf(d, length_scales=2.0)], rho=0.6),
+                          "fidelity"),
+        "Cosine": (kernels.Cosine(d, length_scales=3.0), "x"),
+        "ArcCosine": (kernels.ArcCosine(d, order=1), "x"),
+        "ChangePoints": (kernels.ChangePoints([kernels.Rbf(1), kernels.Rbf(1, length_scales=0.5)], [0.0]), "line"),
+        "Coregion": (kernels.Coregion(4, rank=2), "task"),
+    }
+
+
+def _zoo_input(kind, x):
+    if kind == "fidelity":
+        return torch.cat([x, (torch.arange(x.shape[0], device=x.device) % 2).to(x.dtype)[:, None]], dim=1)
+    if kind == "line":
+        return x[:, :1]
+    if kind == "task":
+        return (torch.arange(x.shape[0], device=x.device) % 4).to(x.dtype)[:, None]
+    return x
+
+
+@pytest.mark.parametrize("name", sorted(_zoo(3)))
+def test_zoo_grams_card_match_cpu(cuda, name):
+    """Each zoo kernel's Gram, cross Gram, diagonal and parameter gradient
+    in float64: the card (K1 under the Rbf wrappers, index columns cast on
+    the card) against the CPU."""
+    rng = np.random.RandomState(14)
+    x1, x2 = rng.randn(300, 3), rng.randn(170, 3)
+    out = {}
+    with _float64():
+        for device in ("cuda", "cpu"):
+            kern, kind = _zoo(3)[name]
+            kern = kern.to(device)
+            a, b = (_zoo_input(kind, torch.as_tensor(t, device=device)) for t in (x1, x2))
+            K, Kx, Kd = kern.K(a), kern.K(a, b), kern.Kdiag(a)
+            (K.sum() + (Kx * Kx).sum() + Kd.sum()).backward()
+            out[device] = [t.detach().cpu() for t in (K, Kx, Kd)] + [
+                v.grad.cpu() for v in get_trainable(kern).values()]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-10 * max(1.0, float(want.abs().max())))
+
+
+def test_zoo_gram_rows_blocks_on_the_card(cuda, monkeypatch):
+    """Without a gradient, the SpectralMixture and ExpSinSquared(ARD) Grams
+    go in row blocks on the card; the same Gram as one pass."""
+    x = torch.randn(700, 3, generator=torch.Generator(device="cuda").manual_seed(3), device="cuda",
+                    dtype=torch.float64)
+    for name in ("SpectralMixture", "ExpSinSquared"):
+        kern = _zoo(3)[name][0].to(device="cuda", dtype=torch.float64)
+        with torch.no_grad():
+            whole = kern.K(x)
+            monkeypatch.setattr(kernels, "_BLOCK_ELEMENTS", 64 * 700)
+            blocked = kern.K(x)
+            monkeypatch.setattr(kernels, "_BLOCK_ELEMENTS", 2 ** 27)
+        assert torch.equal(whole, blocked)
+
+
+def test_spectral_mixture_features_on_the_card(cuda):
+    """SpectralMixture's random Fourier features drawn on the card: the
+    feature estimate of K within 5 standard errors."""
+    with _float64():
+        kern = _zoo(3)["SpectralMixture"][0].to("cuda")
+        x = torch.randn(6, 3, generator=torch.Generator(device="cuda").manual_seed(4), device="cuda") * 0.7
+        F = 8192
+        phi = sampling.RandomFourierFeatures(kern, F, torch.Generator(device="cuda").manual_seed(0))(x)
+        terms = F * phi[:, None, :] * phi[None, :, :]
+        z = (terms.mean(-1) - kern.K(x).detach()) / (terms.std(-1) / math.sqrt(F))
+        assert float(z.abs().max()) < 5.0
+
+
+def test_dkl_studentt_svgp_card_matches_cpu(cuda):
+    """DeepKernel(Rbf) with an MLP and a StudentT likelihood in an SVGP:
+    the full-batch ELBO and its gradient in float64, card against CPU
+    within 1e-8 (the inducing points' Gram in a 2-D feature space is far
+    worse conditioned than in input space, and carries K1's and the plain
+    twin's roundoff into the ELBO), and a captured Adam run on the card."""
+    rng = np.random.RandomState(15)
+    x = rng.randn(400, 3)
+    y = np.sin(x[:, :1]) + 0.1 * rng.standard_t(4.0, (400, 1))
+    z = x[rng.permutation(400)[:32]]
+    out = {}
+    with _float64(), settings.override(jitter_policy="fixed"):
+        for device in ("cuda", "cpu"):
+            kern = kernels.DeepKernel(kernels.Rbf(2, ARD=True), nn.MLP([3, 16, 16, 2]))
+            model = SVGP(x, y, kern, inducing_points=z, likelihood=likelihoods.StudentT(df=4.0), batch_size=64,
+                         jitter=1e-4, device=device)
+            loss = model.loss(x=model.X, y=model.Y)
+            loss.backward()
+            out[device] = (float(loss.detach()), {k: v.grad.cpu() for k, v in get_trainable(model).items()})
+            del loss  # a live graph of an earlier backward would tie the capture to the default stream
+            if device == "cuda":
+                losses = model.fit_scan("Adam", max_iter=5, generator=torch.Generator(device="cuda"))
+                assert fit.fit_scan.last_run["captured"] and bool(torch.isfinite(losses).all())
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-8)
+    scale = max(float(g.abs().max()) for g in out["cpu"][1].values())
+    for k, g in out["cuda"][1].items():
+        torch.testing.assert_close(g, out["cpu"][1][k], rtol=0, atol=1e-8 * scale)

@@ -168,7 +168,7 @@ def test_rff_approximates_the_kernel(kind):
 
 
 def test_rff_rejects_other_kernels():
-    with pytest.raises(TypeError, match="item 8"):
+    with pytest.raises(TypeError, match="supports Rbf, the Matérn family and SpectralMixture; got Linear"):
         RandomFourierFeatures(kernels.Linear(D), 8, torch.Generator())
 
 
