@@ -83,6 +83,24 @@
    and three L-BFGS iterations on the card, held against the CPU's loss
    and gradient and its losses at the card's iterates, which a background
    process of this script computes while the card trains at full n.
+13. Kernel phases of the matrix-free exact GP: K3 ``gram_mvm`` (the five
+   kinds in float32 and float64 at n = 4096 and 4097 with k = 1, 9 and
+   256) and K4 ``lowrank_contractions`` (the same with r = 9 and 17), each
+   launched twice and bitwise equal, then timed at n = 100000, d = 8,
+   float32 (K3 with k = 9 and 1, K4 with r = 9).  They run right after
+   the K2 phase.
+14. iterative_training: bench_iterative.py's model at bench.py's
+   n = 100000, d = 8 (GPR(solver="iterative"), 8 probes, 128 CG steps,
+   rank-64 preconditioner, tolerance 1e-4, float32): one warm and two timed
+   value-and-grads, ``fit_scan("Adam", 2)`` (eager by fit.captures' rule),
+   the stages of one value-and-grad, ``iterative_diagnostics()``, and the
+   NLML and gradient in float32 against float64 at full n.
+15. iterative_serving: ``posterior(love_rank=256)`` of that model, 8
+   batches of 256 queries through predict_f, then one CG-exact predict_f
+   of 16 queries; the means must agree.  Then in float64 at n = 4096 the
+   card against the CPU: loss, gradient, α, LOVE variances, diagnostics,
+   the CPU's side computed by a background process of this script
+   (``--iterative-cpu-reference PATH``) while the card runs 14 and 15.
 
 On the card, fit_scan captures a first-order run as a CUDA graph; the
 training, general-training, SVGP and DKL phases check that it did.  Before
@@ -169,6 +187,32 @@ ZOO_GRAM_CHECK_N = 2048
 # DeepKernel(Rbf(2, ARD), MLP([9, 64, 64, 2])) (gptorch_tpu/nn.py:67's widths).
 DKL_WIDTHS, DKL_DF = [SP_D, 64, 64, 2], 4.0
 DKL_CHECK_N, DKL_CHECK_M = 4096, 128
+# The matrix-free exact GP: bench_iterative.py's model at bench.py's
+# n = 100000 (bench.py:293-295): GPR(solver="iterative"), Rbf(8, ARD),
+# Gaussian(0.1), 8 probes, 128 CG steps, a rank-64 preconditioner, CG
+# tolerance 1e-4, jitter 1e-3, float32; two timed value-and-grads, then
+# fit_scan Adam lr 1e-4 for 2 steps.  Serving: LOVE of rank 256, 8 batches
+# of 256 queries; then one CG-exact predict_f of 16 queries.  The float64
+# card-vs-CPU check runs at n = 4096 with LOVE of rank 64, and CG to 1e-10
+# in up to IT_CHECK_ITERS steps, so that every column of both routes
+# converges (they need about 160 steps there) and the solves, and all that
+# is linear in them, agree to the check's 1e-8 whichever step each route
+# stops on.
+IT_N, IT_PROBES, IT_CG_ITERS, IT_RANK, IT_TOL, IT_SLAB, IT_JITTER = 100000, 8, 128, 64, 1e-4, 4096, 1e-3
+IT_STEPS, IT_LOVE_RANK, IT_CG_QUERIES, IT_CHECK_N, IT_CHECK_LOVE = 2, 256, 16, 4096, 64
+IT_CHECK_TOL, IT_CHECK_ITERS = 1e-10, 200
+# K3 and K4 against their plain twins (run in float64 on the same inputs,
+# so the twin's own rounding is not charged to the kernel), relative to the
+# sums of absolute terms of each output (mvm.gram_mvm_plain on |V|;
+# lowrank_contract.lowrank_scales).  float32: a thread sums a tile's 256
+# terms in float32, then tile by tile (K3) or in float64 (K4); for
+# rounding errors that behave as random that is about (√256 + √(n/256))·u
+# of the scale, 2e-6 at n = 4097 (Higham §4.2), and the approximate exp2,
+# log2, rcp and sqrt add about 2^-22 per term: 2e-5 keeps a factor of ten.
+# float64: summation (√n·u ≈ 1e-14) and the twin's r² by the norm identity
+# (error up to u·(|x̃ᵢ|² + |x̃ⱼ|²)), which matern12's E = G/r amplifies at
+# the closest pair, as for K2: 1e-10.
+MVM_TOL = {"float32": 2e-5, "float64": 1e-10}
 # Kuu's relative floor for 1024 inducing points seen through a 2-D feature
 # map: their Rbf Gram has a numerical rank far below 1024, and float32's
 # Cholesky needs a floor near 1e-3 where the sparse cell's 9-D inputs take
@@ -442,13 +486,17 @@ def make_data(n, d, dtype, seed=0):
     return x, y, xq
 
 
-def zero_counts(gram, contract):
-    gram.rbf_gram.launches = 0
-    contract.radial_contractions.launches = 0
+def zero_counts():
+    from gptorch_tpu_torch import ops
+
+    ops.reset_launch_counts()
 
 
-def read_counts(gram, contract):
-    return {"rbf_gram": gram.rbf_gram.launches, "radial_contractions": contract.radial_contractions.launches}
+def read_counts():
+    """Every kernel's launches since the last :func:`zero_counts`, by name."""
+    from gptorch_tpu_torch import ops
+
+    return ops.launch_counts()
 
 
 def replayed_launches():
@@ -466,7 +514,9 @@ def replayed_launches():
 
 
 def add_counts(*counts):
-    out = {"rbf_gram": 0, "radial_contractions": 0}
+    from gptorch_tpu_torch import ops
+
+    out = dict.fromkeys(ops.launch_counts(), 0)
     for c in counts:
         for k, v in c.items():
             out[k] += v
@@ -491,7 +541,7 @@ def serving_phase(torch, gram, contract):
         model = GPR(x, y, kernels.Rbf(D, ARD=True), likelihood=likelihoods.Gaussian(0.1))
         check(model.device.type == "cuda", "GPR did not land on the card")
         torch.cuda.synchronize()
-        zero_counts(gram, contract)
+        zero_counts()
         t0 = time.perf_counter()
         post = model.posterior()
         torch.cuda.synchronize()
@@ -510,7 +560,7 @@ def serving_phase(torch, gram, contract):
             m = serving.mean_only(xb)
             mean_ms.append(1e3 * (time.perf_counter() - t0))
             means.append(mu), variances.append(var), mean_only.append(m)
-        out["launches"] = read_counts(gram, contract)
+        out["launches"] = read_counts()
         out["predict_f_ms"] = predict_ms
         out["mean_only_ms"] = mean_ms
         check(out["launches"]["rbf_gram"] > 0, "the serving path never launched rbf_gram")
@@ -628,12 +678,12 @@ def training_phase(torch, gram, contract):
     # replays reuse the graph's pool, which the allocator's peak does not see
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
-    zero_counts(gram, contract)
+    zero_counts()
     t0 = time.perf_counter()
     losses = model.fit_scan("Adam", max_iter=TRAIN_STEPS, learning_rate=TRAIN_LR)  # replays of the cached graph
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    out["launches"] = add_counts(read_counts(gram, contract), replayed_launches())
+    out["launches"] = add_counts(read_counts(), replayed_launches())
     out["step_ms"] = 1e3 * wall / TRAIN_STEPS
     out["steps_per_s"] = TRAIN_STEPS / wall
     out["losses"] = [float(v) for v in torch.cat([warm, losses]).cpu()]
@@ -642,8 +692,8 @@ def training_phase(torch, gram, contract):
           f"{out['steps_per_s']:.4f} steps/s, launches {out['launches']} (recorded per captured step "
           f"{out['launches_per_captured_step']} x {TRAIN_STEPS} replays), peak device memory "
           f"{out['peak_mem_gb']:.2f} GB, losses {out['losses']}", flush=True)
-    for name, count in out["launches"].items():
-        check(count > 0, f"the training path never launched {name}")
+    for name in ("rbf_gram", "radial_contractions"):
+        check(out["launches"][name] > 0, f"the training path never launched {name}")
     check(all(math.isfinite(v) for v in out["losses"]), "non-finite training loss")
     check(out["losses"][-1] < out["losses"][0], "training did not lower the loss")
 
@@ -844,12 +894,12 @@ def card_vs_cpu(torch, gram, contract):
                 model = GPR(xr, yr, kern, mean_function=mean, likelihood=likelihoods.Gaussian(0.1), fast=fast,
                             fast_block=TRAIN_NB, objective=objective, device=device)
                 fused = model._fast_eligible(model.X)
-                zero_counts(gram, contract)
+                zero_counts()
                 loss = model.loss()
                 loss.backward()
                 raws = get_trainable(model)
                 res[device] = (float(loss.detach()), np.concatenate([raws[k].grad.cpu().numpy().ravel()
-                                                            for k in sorted(raws)]), read_counts(gram, contract),
+                                                            for k in sorted(raws)]), read_counts(),
                                fused)
                 del model, loss, raws
             value_rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
@@ -858,7 +908,7 @@ def card_vs_cpu(torch, gram, contract):
                   f"{grad_rel:.3e} (tol {F64_REL_TOL}), card launches {res['cuda'][2]}, fused route on the card "
                   f"{res['cuda'][3]}, on the CPU {res['cpu'][3]}", flush=True)
             check(expect[route](res["cuda"][2]), f"{route}: unexpected launches {res['cuda'][2]}")
-            check(res["cpu"][2] == {"rbf_gram": 0, "radial_contractions": 0}, f"{route}: the CPU launched")
+            check(not any(res["cpu"][2].values()), f"{route}: the CPU launched")
             if route.startswith("wide"):
                 check(res["cpu"][3] and not res["cuda"][3], f"{route}: the routes are not CPU fused, card general")
             check(value_rel <= F64_REL_TOL, f"{route}: loss card vs CPU {value_rel} > {F64_REL_TOL}")
@@ -901,7 +951,7 @@ def general_training_phase(torch, gram, contract):
     out["launches_per_captured_step"] = check_captured("general training")
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9  # the warm-up step's and the capture's
 
-    zero_counts(gram, contract)
+    zero_counts()
     t0 = time.perf_counter()
     losses = model.fit_scan("Adam", max_iter=GEN_STEPS, learning_rate=TRAIN_LR)  # replays
     torch.cuda.synchronize()
@@ -924,7 +974,7 @@ def general_training_phase(torch, gram, contract):
     out["lbfgs_s"] = time.perf_counter() - t0
     out["lbfgs_evaluations"] = int(result.nfev)
     out["lbfgs_loss"] = float(result.fun)
-    out["launches"] = add_counts(read_counts(gram, contract), replayed)
+    out["launches"] = add_counts(read_counts(), replayed)
     out["losses"] = [float(v) for v in torch.cat([warm, losses]).cpu()]
     print(f"# general training n={N} d={D} f32 {out['kernel']} fit_scan Adam lr={TRAIN_LR} (captured CUDA graph, "
           f"launches recorded per captured step {out['launches_per_captured_step']}): warm call of "
@@ -1095,7 +1145,7 @@ def observe_loop_phase(torch, gram, contract):
         model = GPR(x, y, kernels.Rbf(D, ARD=True), likelihood=likelihoods.Gaussian(0.1))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        zero_counts(gram, contract)
+        zero_counts()
         t0 = time.perf_counter()
         post = model.posterior()
         torch.cuda.synchronize()
@@ -1123,7 +1173,7 @@ def observe_loop_phase(torch, gram, contract):
                 paths_out[name] = paths(cand)
             torch.cuda.synchronize()
             out["paths_ms"][name] = 1e3 * (time.perf_counter() - t0)
-        out["launches"] = read_counts(gram, contract)
+        out["launches"] = read_counts()
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         print(f"# observe loop n={N} d={D} f32: factorize {out['factorize_ms']:.1f} ms, chain of capacity "
               f"{N + nb_total} {out['chain_ms']:.1f} ms, {OBS_STEPS} observes of {OBS_NB}: median "
@@ -1282,7 +1332,7 @@ def svgp_training_phase(torch, gram, contract):
         out["launches_per_captured_step"] = check_captured("svgp training")
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9  # the warm-up step's and the capture's
 
-        zero_counts(gram, contract)
+        zero_counts()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
@@ -1290,7 +1340,7 @@ def svgp_training_phase(torch, gram, contract):
         end.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        out["launches"] = add_counts(read_counts(gram, contract), replayed_launches())
+        out["launches"] = add_counts(read_counts(), replayed_launches())
         out["step_ms"] = 1e3 * wall / SP_STEPS
         out["steps_per_s"] = SP_STEPS / wall
         out["event_span_ms_per_step"] = start.elapsed_time(end) / SP_STEPS
@@ -1446,7 +1496,7 @@ def sparse_serving_phase(torch, gram, contract, svgp, kind):
         else:
             model = svgp
         torch.cuda.synchronize()
-        zero_counts(gram, contract)
+        zero_counts()
         t0 = time.perf_counter()
         post = model.posterior()
         torch.cuda.synchronize()
@@ -1461,7 +1511,7 @@ def sparse_serving_phase(torch, gram, contract, svgp, kind):
             mu, var = serving.predict_f(xb)
             predict_ms.append(1e3 * (time.perf_counter() - t0))
             means.append(mu), variances.append(var)
-        out["launches"] = read_counts(gram, contract)
+        out["launches"] = read_counts()
         out["predict_f_ms"] = predict_ms
         check(out["launches"]["rbf_gram"] > 0, f"the {kind} serving path never launched rbf_gram")
         mu, var = np.concatenate(means), np.concatenate(variances)
@@ -1522,7 +1572,7 @@ def sparse_card_vs_cpu(torch, gram, contract):
             res = {}
             for device in ("cuda", "cpu"):
                 model = make(device)
-                zero_counts(gram, contract)
+                zero_counts()
                 raws = get_trainable(model)
                 if name.startswith("natgrad"):
                     step, _ = natgrad.make_natgrad_step(model, nat_lr=0.5)
@@ -1534,7 +1584,7 @@ def sparse_card_vs_cpu(torch, gram, contract):
                     loss.backward()
                     value = float(loss.detach())
                     vec = np.concatenate([raws[k].grad.cpu().numpy().ravel() for k in sorted(raws)])
-                res[device] = (value, vec, read_counts(gram, contract))
+                res[device] = (value, vec, read_counts())
                 del model, raws
             value_rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
             vec_rel = float(np.abs(res["cuda"][1] - res["cpu"][1]).max() / np.abs(res["cpu"][1]).max())
@@ -1542,7 +1592,7 @@ def sparse_card_vs_cpu(torch, gram, contract):
             print(f"# sparse f64 card vs CPU n={n} m={m} {name}: loss rel {value_rel:.3e}, {what} rel "
                   f"{vec_rel:.3e} (tol {F64_REL_TOL}), card launches {res['cuda'][2]}", flush=True)
             check(res["cuda"][2]["rbf_gram"] >= 2, f"{name}: the card route launched rbf_gram {res['cuda'][2]}")
-            check(res["cpu"][2] == {"rbf_gram": 0, "radial_contractions": 0}, f"{name}: the CPU launched")
+            check(not any(res["cpu"][2].values()), f"{name}: the CPU launched")
             check(value_rel <= F64_REL_TOL, f"{name}: loss card vs CPU {value_rel} > {F64_REL_TOL}")
             check(vec_rel <= F64_REL_TOL, f"{name}: {what} card vs CPU {vec_rel} > {F64_REL_TOL}")
             out[name] = {"value_rel": value_rel, "vec_rel": vec_rel, "launches": res["cuda"][2]}
@@ -1608,12 +1658,12 @@ def svgp_captured_phase(torch, gram, contract, captured):
         gen = torch.Generator(device="cuda").manual_seed(0)
         fit._fit_scan(model, "Adam", SP_STEPS, SP_LR, gen, capture=False)
         torch.cuda.synchronize()
-        zero_counts(gram, contract)
+        zero_counts()
         t0 = time.perf_counter()
         fit._fit_scan(model, "Adam", SP_STEPS, SP_LR, gen, capture=False)
         torch.cuda.synchronize()
         out["eager_step_ms"] = 1e3 * (time.perf_counter() - t0) / SP_STEPS
-        eager_counts = read_counts(gram, contract)
+        eager_counts = read_counts()
         _, busy, _ = device_busy_ms(torch, lambda: fit._fit_scan(model, "Adam", SP_STEPS, SP_LR, gen, capture=False))
         out["eager_device_ms_per_step"] = busy / SP_STEPS
         out["eager_idle_share"] = 1.0 - out["eager_device_ms_per_step"] / out["eager_step_ms"]
@@ -1673,7 +1723,7 @@ def dkl_studentt_svgp_phase(torch, gram, contract):
         out["warm_call_s"] = time.perf_counter() - t0
         out["launches_per_captured_step"] = check_captured("dkl_studentt_svgp")
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9  # the warm-up step's and the capture's
-        zero_counts(gram, contract)
+        zero_counts()
         t0 = time.perf_counter()
         losses = model.fit_scan("Adam", max_iter=SP_STEPS, learning_rate=SP_LR, generator=gen)
         torch.cuda.synchronize()
@@ -1686,7 +1736,7 @@ def dkl_studentt_svgp_phase(torch, gram, contract):
         out["serving_setup_ms"] = 1e3 * (time.perf_counter() - t0)
         mu, var = serving.predict_f(xq[0])
         out["predict_f_ms"] = time_ms(lambda: serving.predict_f(xq[0]), 10)
-        out["launches"] = add_counts(read_counts(gram, contract), replayed)
+        out["launches"] = add_counts(read_counts(), replayed)
         del model, serving
     first, last = np.mean(out["losses"][:10]), np.mean(out["losses"][-10:])
     print(f"# dkl_studentt_svgp n={SP_N} d={SP_D} m={SP_M} batch={SP_BATCH} f32 DeepKernel(Rbf(2), MLP({DKL_WIDTHS})) "
@@ -1778,9 +1828,9 @@ def zoo_grams_phase(torch, gram, contract):
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            zero_counts(gram, contract)
+            zero_counts()
             ms = time_ms(lambda: kern.K(a), 2)
-            counts.append(read_counts(gram, contract))
+            counts.append(read_counts())
             peak = torch.cuda.max_memory_allocated() / 1e9
             k64 = copy.deepcopy(kern).double()
             a64 = a[:ZOO_GRAM_CHECK_N].double()
@@ -1957,12 +2007,12 @@ def zoo_training_phase(torch, gram, contract):
                "iterations": ZOO_LBFGS_ITERS}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        zero_counts(gram, contract)
+        zero_counts()
         t0 = time.perf_counter()
         losses = model.fit_scan("LBFGS", max_iter=ZOO_LBFGS_ITERS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        out["launches"] = read_counts(gram, contract)
+        out["launches"] = read_counts()
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         out["evaluations"] = list(fit.fit_scan.last_run["evaluations"])
         out["lbfgs_s"] = wall
@@ -2015,20 +2065,503 @@ def zoo_training_phase(torch, gram, contract):
     return out
 
 
+def mvm_bound_ms(n, d, k, dtype, itemsize):
+    """Least time for K3's function: xs and V read once, the output written
+    once, and 2d + 5 + 2k operations per pair (2d + 3 for r² by the norm
+    identity, as the reference computes it: a d-long dot product, two adds
+    and the doubling; 2 for the scale and the exp; k fused multiply-adds),
+    a fused multiply-add counted as two.  The kernel spends 3d on r² by
+    direct differences; that is its cost, not the function's."""
+    return bound_ms((n * d + 2 * n * k + 3) * itemsize, n * n * (2 * d + 5 + 2 * k), dtype)
+
+
+def lowrank_bound_ms(n, d, r, dtype, itemsize):
+    """Least time for K4's function: xs, Wl and Wr read once, d + 2 sums
+    written, and 4d + 2r + 11 operations per pair (2d + 3 for r² by the
+    norm identity, 2r for Wᵢⱼ, 3 for the map, 2 for svar, 1 for Wᵢⱼ·Eᵢⱼ,
+    2d + 2 for the length-scale sums by the reference's formula: M·x̃ and
+    the row and column sums of M = W⊙E).  The kernel spends 3d + 3d there
+    by direct differences."""
+    return bound_ms((n * d + 2 * n * r + 2 + d + 2) * itemsize, n * n * (4 * d + 2 * r + 11), dtype)
+
+
+def radial_inputs(torch, n, cols, dtype, seed):
+    """Scaled inputs x̃ (n, D), a (n, cols) block, log σ² and rq's log α on
+    the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xs = torch.randn(n, D, generator=g, device="cuda", dtype=dtype) / 1.1
+    V = torch.randn(n, cols, generator=g, device="cuda", dtype=dtype)
+    return xs, V, torch.tensor(math.log(1.3), device="cuda", dtype=dtype), torch.tensor([math.log(0.7)],
+                                                                                        device="cuda", dtype=dtype)
+
+
+def mvm_error(torch, mvm, got, kind, xs, log_var, noise, V, log_extra):
+    """(max |kernel − twin| / scale, max abs) with the twin in float64."""
+    args = (xs.double(), log_var.double(), noise)
+    ref = mvm.gram_mvm_plain(kind, *args, V.double(), 2048, log_extra.double())
+    scale = mvm.gram_mvm_plain(kind, *args, V.double().abs(), 2048, log_extra.double())
+    err = (got.double() - ref).abs()
+    return float((err / scale).max()), float(err.max())
+
+
+def mvm_phase(torch, mvm):
+    """K3 against its twin: five kinds, float32 and float64, n = 4096 and
+    4097, k = 1, 9 and 256, each launched twice (bitwise equal); then timed
+    at the path's shape (n = 100000, d = 8, float32; k = 9 in mBCG, k = 1 in
+    LOVE) beside the twin and the bound, and its float32 error there."""
+    rows = []
+    noise = 0.1 + IT_JITTER
+    for dtype in (torch.float32, torch.float64):
+        name = dtype_name(dtype)
+        for n in (4096, 4097):
+            for kind in KINDS:
+                errs = []
+                for k in (1, 9, 256):
+                    xs, V, lv, le = radial_inputs(torch, n, k, dtype, seed=k)
+                    got = mvm.gram_mvm(kind, xs, lv, noise, V, log_extra=le)
+                    again = mvm.gram_mvm(kind, xs, lv, noise, V, log_extra=le)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, again), f"gram_mvm {kind} {name} n={n} k={k}: two launches differ")
+                    rel, absolute = mvm_error(torch, mvm, got, kind, xs, lv, noise, V, le)
+                    errs.append((k, rel, absolute))
+                    check(rel <= MVM_TOL[name], f"gram_mvm {kind} {name} n={n} k={k}: {rel} > {MVM_TOL[name]}")
+                print(f"# kernel gram_mvm {kind:8s} {name} n={n} d={D}: max |kernel-plain|/scale by k "
+                      + ", ".join(f"k={k} {rel:.3e} (abs {a:.3e})" for k, rel, a in errs)
+                      + f" (tol {MVM_TOL[name]:.0e}); two launches bitwise equal", flush=True)
+                rows.append({"case": kind, "dtype": name, "n": n, "errors": errs, "tol": MVM_TOL[name]})
+    torch.cuda.empty_cache()
+    timed = {}
+    for k in (9, 1):
+        xs, V, lv, le = radial_inputs(torch, IT_N, k, torch.float32, seed=100 + k)
+        with torch.no_grad():
+            got = mvm.gram_mvm("rbf", xs, lv, noise, V)
+            rel, absolute = mvm_error(torch, mvm, got, "rbf", xs, lv, noise, V, le)
+            ms = time_ms(lambda: mvm.gram_mvm("rbf", xs, lv, noise, V), 10)
+            plain_ms = time_ms(lambda: mvm.gram_mvm_plain("rbf", xs, lv, noise, V, IT_SLAB), 1)
+        bound, by = mvm_bound_ms(IT_N, D, k, "float32", 4)
+        gbytes = (IT_N * D + 2 * IT_N * k) * 4 / 1e9
+        print(f"# kernel gram_mvm rbf float32 n={IT_N} d={D} k={k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound:.3f} ms ({by}), {100 * bound / ms:.1f} % of the bound, {gbytes / ms * 1e3:.2f} GB/s; "
+              f"max |kernel-plain(f64)|/scale {rel:.3e} (tol {MVM_TOL['float32']:.0e}), max abs {absolute:.3e}",
+              flush=True)
+        check(rel <= MVM_TOL["float32"], f"gram_mvm rbf float32 n={IT_N} k={k}: {rel}")
+        timed[k] = {"k": k, "n": IT_N, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                    "max_rel_err": rel, "max_abs_err": absolute, "gb_per_s": gbytes / ms * 1e3}
+        del xs, V, got
+        torch.cuda.empty_cache()
+    return {"checks": rows, "timed": timed}
+
+
+def lowrank_error(torch, lowrank, got, kind, xs, var, Wl, Wr, log_extra):
+    """(max |kernel − twin| / scale over svar, grad_ell and sextra, max abs),
+    the twin and the scales in float64."""
+    args = (kind, xs.double(), var.double(), Wl.double(), Wr.double())
+    ref = lowrank.lowrank_contractions_plain(*args, 2048, log_extra.double())
+    scale = lowrank.lowrank_scales(*args, 256 if xs.shape[0] <= 8192 else 1024, log_extra.double())
+    rel = absolute = 0.0
+    for g, r, sc in zip(got, ref, scale):
+        err = (g.double() - r).abs()
+        absolute = max(absolute, float(err.max()))
+        rel = max(rel, float((err / sc.clamp(min=1e-300)).max()))
+    return rel, absolute
+
+
+def lowrank_phase(torch, lowrank):
+    """K4 against its twin: five kinds, float32 and float64, n = 4096 and
+    4097, r = 9 and 17 (an asymmetric W = Wl·Wrᵀ), each launched twice
+    (bitwise equal); then timed at the path's shape (n = 100000, d = 8,
+    r = 9, float32) beside the twin and the bound, with its float32 error."""
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        name = dtype_name(dtype)
+        for n in (4096, 4097):
+            for kind in KINDS:
+                errs = []
+                for r in (9, 17):
+                    xs, W, lv, le = radial_inputs(torch, n, 2 * r, dtype, seed=r)
+                    Wl, Wr = W[:, :r].contiguous(), W[:, r:].contiguous()
+                    var = torch.exp(lv)
+                    got = lowrank.lowrank_contractions(kind, xs, var, Wl, Wr, log_extra=le)
+                    again = lowrank.lowrank_contractions(kind, xs, var, Wl, Wr, log_extra=le)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"lowrank_contractions {kind} {name} n={n} r={r}: two launches differ")
+                    rel, absolute = lowrank_error(torch, lowrank, got, kind, xs, var, Wl, Wr, le)
+                    errs.append((r, rel, absolute))
+                    check(rel <= MVM_TOL[name], f"lowrank_contractions {kind} {name} n={n} r={r}: {rel}")
+                print(f"# kernel lowrank_contractions {kind:8s} {name} n={n} d={D}: max |kernel-plain|/scale by r "
+                      + ", ".join(f"r={r} {rel:.3e} (abs {a:.3e})" for r, rel, a in errs)
+                      + f" (tol {MVM_TOL[name]:.0e}); two launches bitwise equal", flush=True)
+                rows.append({"case": kind, "dtype": name, "n": n, "errors": errs, "tol": MVM_TOL[name]})
+    torch.cuda.empty_cache()
+    r = IT_PROBES + 1
+    xs, W, lv, le = radial_inputs(torch, IT_N, 2 * r, torch.float32, seed=200)
+    Wl, Wr, var = W[:, :r].contiguous(), W[:, r:].contiguous(), torch.exp(lv)
+    with torch.no_grad():
+        got = lowrank.lowrank_contractions("rbf", xs, var, Wl, Wr)
+        rel, absolute = lowrank_error(torch, lowrank, got, "rbf", xs, var, Wl, Wr, le)
+        ms = time_ms(lambda: lowrank.lowrank_contractions("rbf", xs, var, Wl, Wr), 5)
+        plain_ms = time_ms(lambda: lowrank.lowrank_contractions_plain("rbf", xs, var, Wl, Wr, IT_SLAB), 1)
+    bound, by = lowrank_bound_ms(IT_N, D, r, "float32", 4)
+    gbytes = (IT_N * D + 2 * IT_N * r) * 4 / 1e9
+    print(f"# kernel lowrank_contractions rbf float32 n={IT_N} d={D} r={r}: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound:.3f} ms ({by}), {100 * bound / ms:.1f} % of the bound, "
+          f"{gbytes / ms * 1e3:.2f} GB/s; max |kernel-plain(f64)|/scale {rel:.3e} (tol {MVM_TOL['float32']:.0e}), "
+          f"max abs {absolute:.3e}", flush=True)
+    check(rel <= MVM_TOL["float32"], f"lowrank_contractions rbf float32 n={IT_N}: {rel}")
+    del xs, W, Wl, Wr
+    torch.cuda.empty_cache()
+    return {"checks": rows, "timed": {"r": r, "n": IT_N, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                                      "bound_by": by, "max_rel_err": rel, "max_abs_err": absolute,
+                                      "gb_per_s": gbytes / ms * 1e3}}
+
+
+def iterative_model(n, dtype, device=None, precond_rank=IT_RANK, cg_tol=IT_TOL, max_cg_iters=IT_CG_ITERS):
+    """bench_iterative.py's model on make_data's data (bench.py's: x ~ N(0,
+    I), y = sin(x₀) + 0.1ε, RandomState(0)) and its query batches."""
+    from gptorch_tpu_torch import kernels, likelihoods
+    from gptorch_tpu_torch.models import GPR
+
+    x, y, xq = make_data(n, D, dtype)
+    model = GPR(x, y, kernels.Rbf(D, ARD=True), likelihood=likelihoods.Gaussian(0.1), solver="iterative",
+                probes=IT_PROBES, max_cg_iters=max_cg_iters, precond_rank=precond_rank, cg_tol=cg_tol,
+                mvm_slab=IT_SLAB, fast_jitter=IT_JITTER, device=device)
+    return model, xq
+
+
+def iterative_value_and_grad(torch, model):
+    """One loss and backward; returns (loss, the gradient as one float64
+    vector in sorted trainable order)."""
+    from gptorch_tpu_torch.module import get_trainable
+
+    model.zero_grad(set_to_none=True)
+    loss = model.loss()
+    loss.backward()
+    raws = get_trainable(model)
+    return float(loss.detach()), np.concatenate([raws[k].grad.double().cpu().numpy().ravel() for k in sorted(raws)])
+
+
+def iterative_training_phase(torch):
+    """The matrix-free exact GP at n = 100000 (see IT_N): one warm
+    value-and-grad, two timed ones (CUDA events), fit_scan Adam (eager by
+    fit.captures' rule), the stages of one value-and-grad, the diagnostics,
+    and float32 against float64 at full n from the same seeds."""
+    from gptorch_tpu_torch.training import fit
+
+    model, xq = iterative_model(IT_N, np.float32)
+    check(model.device.type == "cuda" and model._iterative_eligible(model.X), "the iterative model is not on the card")
+    check(not fit.captures(model, "Adam"), "fit_scan would capture the iterative step")
+    out = {"n": IT_N, "d": D, "dtype": "float32", "probes": IT_PROBES, "max_cg_iters": IT_CG_ITERS,
+           "precond_rank": IT_RANK, "cg_tol": IT_TOL}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the model, and what earlier phases still hold
+    t0 = time.perf_counter()
+    iterative_value_and_grad(torch, model)
+    torch.cuda.synchronize()
+    out["warm_s"] = time.perf_counter() - t0
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["step_mem_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+
+    zero_counts()
+    times, values = [], []
+    for _ in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        values.append(iterative_value_and_grad(torch, model)[0])
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    t0 = time.perf_counter()
+    losses = model.fit_scan("Adam", max_iter=IT_STEPS, learning_rate=TRAIN_LR)
+    torch.cuda.synchronize()
+    out["fit_scan_s_per_step"] = (time.perf_counter() - t0) / IT_STEPS
+    out["launches"] = read_counts()
+    out["s_per_step"] = times
+    out["steps_per_s"] = [1.0 / t for t in times]
+    out["losses"] = values + [float(v) for v in losses.cpu()]
+    print(f"# iterative training n={IT_N} d={D} f32 probes={IT_PROBES} cg={IT_CG_ITERS} rank={IT_RANK} "
+          f"tol={IT_TOL}: warm value-and-grad {out['warm_s']:.3f} s; timed {', '.join(f'{t:.4f}' for t in times)} "
+          f"s/step ({', '.join(f'{v:.4f}' for v in out['steps_per_s'])} steps/s); fit_scan Adam lr {TRAIN_LR} "
+          f"(eager) {out['fit_scan_s_per_step']:.4f} s/step; losses {out['losses']}; peak device memory "
+          f"{out['peak_mem_gb']:.3f} GB, of which the value-and-grad's own {out['step_mem_gb']:.3f} GB; launches "
+          f"{out['launches']}", flush=True)
+    check(all(math.isfinite(v) for v in out["losses"]), "non-finite iterative loss")
+    check(not fit.fit_scan.last_run["captured"], "fit_scan captured the iterative step")
+    for name in ("gram_mvm", "lowrank_contractions"):
+        check(out["launches"][name] > 0, f"the iterative training path never launched {name}")
+
+    t0 = time.perf_counter()
+    diag = model.iterative_diagnostics()
+    out["diagnostics_s"] = time.perf_counter() - t0
+    out["diagnostics"] = {"nlml_stderr": float(diag["nlml_stderr"]), "logdet_stderr": float(diag["logdet_stderr"]),
+                          "cg_iters": diag["cg_iters"].tolist(), "cg_relres": diag["cg_relres"].tolist()}
+    print(f"# iterative diagnostics n={IT_N} ({out['diagnostics_s']:.3f} s): nlml_stderr "
+          f"{out['diagnostics']['nlml_stderr']:.4f}, CG iterations {out['diagnostics']['cg_iters']}, relative "
+          f"residuals {[f'{v:.2e}' for v in out['diagnostics']['cg_relres']]}", flush=True)
+    check(np.isfinite(diag["cg_relres"]).all(), "non-finite CG residuals")
+    out["stages_ms"] = iterative_stages(torch, model)
+    out["f32_vs_f64"] = iterative_f32_vs_f64(torch, model)
+    return model, xq, out
+
+
+def iterative_stages(torch, model):
+    """Warm CUDA-event times of the stages of one value-and-grad at the
+    model's values, each through the function the path calls: the pivoted
+    Cholesky; the forward's solve (iterative._solve_system: the pivoted
+    Cholesky, the probes and mBCG), with its K3 share (IT_CG_ITERS products
+    with k = dy + probes); the SLQ's batched eigh; and K4 on the backward's
+    factors (iterative._adjoint_factors)."""
+    from gptorch_tpu_torch.ops import gpr_fast, iterative, lowrank_contract, mvm
+
+    vg_ms = time_ms(lambda: iterative_value_and_grad(torch, model), 1)
+    model.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        kind, le, lv, ln, extra = model._iterative_args()
+        dy = model.Y.shape[1]
+        args = (kind, le, lv, ln, model.X, model.Y, model.probe_seeds, model.fast_jitter, model.mvm_slab,
+                model.max_cg_iters, model.precond_rank, model.cg_tol, extra)
+        Lpc, noise, precond, Z, B, Xs, alphas, betas, valid = iterative._solve_system(*args)
+        V = precond(Z)
+        Wl, Wr = iterative._adjoint_factors(Xs[:, :dy], Xs[:, dy:], V)
+        sq = torch.sum(Z * V, dim=0)
+        xs = gpr_fast._scaled(model.X, le).contiguous()
+        n, k, t, m = B.shape[0], B.shape[1], Z.shape[1], model.max_cg_iters
+        k3_bound = (m * mvm_bound_ms(n, D, k, "float32", 4)[0], "operations")
+        stages = {
+            f"pivoted_cholesky (rank {model.precond_rank})": (
+                lambda: iterative.pivoted_cholesky(kind, le, lv, model.X, model.precond_rank, extra), 2, None),
+            f"forward solve: pivoted Cholesky + mbcg ({m} steps, k={k})": (
+                lambda: iterative._solve_system(*args), 1, (k3_bound[0], "K3's operations")),
+            f"  of which K3 gram_mvm x {m} (k={k})": (
+                lambda: [mvm.gram_mvm(kind, xs, lv, noise, B) for _ in range(m)], 1, k3_bound),
+            f"SLQ: batched eigh of ({t}, {m}, {m})": (
+                lambda: iterative._slq_probe_values(alphas[:, dy:], betas[:, dy:], valid[:, dy:], sq), 3, None),
+            f"backward: K4 lowrank_contractions (r={Wl.shape[1]})": (
+                lambda: lowrank_contract.lowrank_contractions(kind, xs, torch.exp(lv), Wl, Wr), 3,
+                lowrank_bound_ms(n, D, Wl.shape[1], "float32", 4)),
+        }
+        times = {"value_and_grad (loss + backward)": (vg_ms, None)}
+        times.update({name: (time_ms(fn, reps), bound) for name, (fn, reps, bound) in stages.items()})
+    for name, (ms, bound) in times.items():
+        extra_txt = f" (bound {bound[0]:.3f} ms, {bound[1]})" if bound else ""
+        print(f"# iterative stage {name}: {ms:.3f} ms{extra_txt}", flush=True)
+    del Lpc, Z, B, Xs, V, Wl, Wr
+    torch.cuda.empty_cache()
+    return {name: ms for name, (ms, _) in times.items()}
+
+
+def iterative_f32_vs_f64(torch, model):
+    """The NLML and gradient at full n in float32 against float64 on the
+    card, at the trained model's values and from the same probe seeds (the
+    float32 ones, widened), with a rank-1 preconditioner.  At the path's
+    rank 64 the two types choose different pivots: after the first pivot
+    most residual diagonals are σ² − O(1e-7), which float32 rounds to ties
+    that its argmax breaks by index and float64 does not, so the two
+    preconditioners, and with them the probes z ~ N(0, P) and the SLQ and
+    Hutchinson estimates, differ by the estimator's Monte-Carlo noise.
+    The first pivot is row 0 in both (every diagonal is σ² exactly), so at
+    rank 1 they share P, and what is left is arithmetic: each type stops
+    CG at relative residual 1e-4 on a step of its own, so the solves, and
+    the data term and traces linear in them, agree to about that
+    tolerance: the NLML to 1e-4 relative, the gradient to 1e-3 of its
+    largest entry."""
+    from gptorch_tpu_torch import convert
+    from gptorch_tpu_torch.module import get_trainable
+
+    values = {k: v.detach().double().cpu().numpy() for k, v in get_trainable(model).items()}
+    m32, _ = iterative_model(IT_N, np.float32, precond_rank=1)
+    convert.load_trainable(m32, values)
+    v32, g32 = iterative_value_and_grad(torch, m32)
+    with default_dtype(torch, torch.float64):
+        m64, _ = iterative_model(IT_N, np.float32, precond_rank=1)
+        m64 = m64.double()
+        convert.load_trainable(m64, values)
+        m64.probe_seeds = m32.probe_seeds.double()
+        v64, g64 = iterative_value_and_grad(torch, m64)
+    del m32, m64
+    torch.cuda.empty_cache()
+    value_rel = abs(v32 - v64) / abs(v64)
+    grad_rel = float(np.abs(g32 - g64).max() / np.abs(g64).max())
+    print(f"# iterative f32 vs f64 at n={IT_N} (preconditioner rank 1): NLML {v32!r} vs {v64!r} (rel "
+          f"{value_rel:.3e}, tol 1e-4); gradient max|g32-g64|/max|g64| = {grad_rel:.3e} (tol 1e-3); g32 "
+          f"{g32.tolist()}, g64 {g64.tolist()}", flush=True)
+    check(value_rel <= 1e-4, f"iterative f32 vs f64 NLML: {value_rel}")
+    check(grad_rel <= 1e-3, f"iterative f32 vs f64 gradient: {grad_rel}")
+    return {"nlml_f32": v32, "nlml_f64": v64, "value_rel": value_rel, "grad_rel": grad_rel}
+
+
+def iterative_serving_phase(torch, model, xq):
+    """posterior(love_rank=256) of the trained n = 100000 model, then 8
+    batches of 256 queries through predict_f (CUDA events); then one
+    CG-exact predict_f of 16 queries on a posterior without LOVE, against
+    the LOVE posterior's moments at the same queries."""
+    out = {"n": IT_N, "love_rank": IT_LOVE_RANK, "q": Q, "batches": BATCHES}
+    xq = [torch.as_tensor(b, device="cuda") for b in xq]
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    post = model.posterior(love_rank=IT_LOVE_RANK)
+    torch.cuda.synchronize()
+    out["love_build_s"] = time.perf_counter() - t0
+    ms, moments = [], []
+    with torch.no_grad():
+        for b in xq:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            moments.append(post.predict_f(b))
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+    out["launches"] = read_counts()
+    out["predict_ms"] = ms
+    mu, var = moments[0]
+    check(all(torch.isfinite(m).all() and torch.isfinite(v).all() and m.shape == (Q, 1) for m, v in moments),
+          "bad LOVE predict_f output")
+    check(out["launches"]["gram_mvm"] > 0 and out["launches"]["rbf_gram"] > 0,
+          f"the iterative serving path did not launch gram_mvm and rbf_gram: {out['launches']}")
+    t0 = time.perf_counter()
+    exact = model.posterior()
+    torch.cuda.synchronize()
+    out["cg_posterior_s"] = time.perf_counter() - t0
+    with torch.no_grad():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        mu_cg, var_cg = exact.predict_f(xq[0][:IT_CG_QUERIES])
+        end.record()
+        end.synchronize()
+    out["cg_predict_ms"] = start.elapsed_time(end)
+    q = IT_CG_QUERIES
+    # both means are K(x*, X)·α with the same α (the same CG on the same
+    # inputs through deterministic kernels), but cuBLAS sums the n products
+    # in another order for 16 columns than for 256: they agree to float32
+    # roundoff, held to u·Σ|k||α| (u = 2⁻²⁴).  A blocked sum's worst case is
+    # a multiple of that (log₂ n for a pairwise one); rounding errors that
+    # behave as random, as these do, stay well below it.
+    mean_scale = float((exact.kernel.K(exact.X, xq[0][:q]).abs().T @ exact.alpha.abs()).max())
+    out["mean_gap"] = float((mu[:q] - mu_cg).abs().max())
+    out["var_gap"] = float((var[:q] - var_cg).abs().max())
+    out["var_rel_gap"] = float(((var[:q] - var_cg).abs() / var_cg.abs()).max())
+    out["mean_tol"] = F32_UNIT_ROUNDOFF * mean_scale
+    print(f"# iterative serving n={IT_N} LOVE rank {IT_LOVE_RANK}: posterior() {out['love_build_s']:.3f} s; "
+          f"predict_f per batch of {Q} (ms) {[round(v, 3) for v in ms]}, median {float(np.median(ms)):.3f}; "
+          f"launches {out['launches']}; CG-exact posterior() {out['cg_posterior_s']:.3f} s, predict_f of {q} "
+          f"{out['cg_predict_ms']:.1f} ms; LOVE vs CG-exact: means max gap {out['mean_gap']:.3e}, variances "
+          f"max gap {out['var_gap']:.3e} (rel {out['var_rel_gap']:.3e}; CG-exact variances "
+          f"{float(var_cg.min()):.4e}..{float(var_cg.max()):.4e}, LOVE variances "
+          f"{float(var[:q].min()):.4e}..{float(var[:q].max()):.4e}); means held to u*sum|k||alpha| = "
+          f"{out['mean_tol']:.3e}", flush=True)
+    check(out["mean_gap"] <= out["mean_tol"], f"LOVE and CG-exact means differ: {out['mean_gap']} > {out['mean_tol']}")
+    del post, exact
+    torch.cuda.empty_cache()
+    return out
+
+
+def iterative_check_run(torch, device):
+    """One route of iterative_card_vs_cpu at n = 4096 in float64, CG to
+    IT_CHECK_TOL: the loss and gradient, α and the LOVE variances of the
+    posterior, the diagnostics, and the kernel launches (as numpy values)."""
+    model, xq = iterative_model(IT_CHECK_N, np.float64, device=device, cg_tol=IT_CHECK_TOL,
+                                max_cg_iters=IT_CHECK_ITERS)
+    zero_counts()
+    value, grad = iterative_value_and_grad(torch, model)
+    post = model.posterior(love_rank=IT_CHECK_LOVE)
+    _, var = post.predict_f(xq[0])
+    out = {"value": value, "grad": grad, "alpha": post.alpha.detach().cpu().numpy(), "var": var,
+           **{"diag_" + k: v for k, v in model.iterative_diagnostics().items()}}
+    return out, read_counts()
+
+
+def iterative_cpu_reference(path):
+    """The CPU side of iterative_card_vs_cpu, written to ``path`` (npz).
+    Run by a background process of this script
+    (``--iterative-cpu-reference PATH``) while the card runs the
+    iterative paths at full n."""
+    import torch
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 1))  # the card's host thread keeps one core
+    with default_dtype(torch, torch.float64):
+        out, launches = iterative_check_run(torch, "cpu")
+    np.savez(path, launched=sum(launches.values()), **out)
+    return 0
+
+
+def stop_process(proc):
+    """Kill ``proc`` if it is still running, and reap it."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def start_iterative_reference():
+    """Start :func:`iterative_cpu_reference` in a background process (no
+    card); returns (process, result path, log path)."""
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    path, log = os.path.join(workdir, "iterative_cpu.npz"), os.path.join(workdir, "iterative_cpu.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--iterative-cpu-reference", path],
+                                stdout=f, stderr=subprocess.STDOUT, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    return proc, path, log
+
+
+def iterative_card_vs_cpu(torch, reference):
+    """n = 4096 in float64: GPR(solver="iterative") on the card (K3, K4)
+    against the CPU's plain route from the same seeds, which ``reference``
+    (:func:`start_iterative_reference`) computes in the background: the
+    loss, the gradient, α, the LOVE posterior's variances and the
+    diagnostics' logdet and stderr, each to 1e-8 relative.  CG's per-step
+    coefficients are chaotic in floating point (tests/test_torch_iterative.py),
+    so the two routes stop their columns on steps of their own; solved to
+    1e-10 (IT_CHECK_TOL), what follows from the solves agrees all the same."""
+    proc, path, log = reference
+    try:
+        with default_dtype(torch, torch.float64):
+            card, launches = iterative_check_run(torch, "cuda")
+        t0 = time.perf_counter()
+        code = proc.wait(timeout=900)
+        waited = time.perf_counter() - t0
+        if code != 0:
+            with open(log) as f:
+                print(f.read(), file=sys.stderr)
+        check(code == 0, f"the iterative CPU reference process failed (exit {code})")
+        cpu = dict(np.load(path))
+    finally:
+        stop_process(proc)
+    check(launches["gram_mvm"] > 0 and launches["lowrank_contractions"] > 0, f"the card route launched {launches}")
+    check(int(cpu["launched"]) == 0, "the CPU launched")
+
+    def rel(key):
+        return float(np.abs(card[key] - cpu[key]).max() / np.abs(cpu[key]).max())
+
+    rels = {what: rel(key) for what, key in (("loss", "value"), ("gradient", "grad"), ("alpha", "alpha"),
+                                             ("LOVE variances", "var"), ("logdet estimate", "diag_logdet_estimate"),
+                                             ("nlml_stderr", "diag_nlml_stderr"))}
+    iters = (card["diag_cg_iters"].tolist(), cpu["diag_cg_iters"].tolist())
+    print(f"# iterative f64 card vs CPU n={IT_CHECK_N} (CG to {IT_CHECK_TOL:.0e} in up to {IT_CHECK_ITERS} steps, "
+          f"LOVE rank {IT_CHECK_LOVE}): max relative gaps " + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+          + f" (tol {F64_REL_TOL}); CG iterations card {iters[0]}, CPU {iters[1]}; relative residuals card max "
+          f"{float(card['diag_cg_relres'].max()):.2e}, CPU max {float(cpu['diag_cg_relres'].max()):.2e}; card "
+          f"launches {launches}; waited {waited:.1f} s for the CPU", flush=True)
+    for what, value in rels.items():
+        check(value <= F64_REL_TOL, f"iterative card vs CPU {what}: {value} > {F64_REL_TOL}")
+    return {**{k.replace(" ", "_") + "_rel": v for k, v in rels.items()}, "cg_iters": iters, "launches": launches,
+            "cpu_wait_s": waited}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
-    from gptorch_tpu_torch.ops import _build, contract, gram
+    from gptorch_tpu_torch.ops import _build, contract, gram, lowrank_contract, mvm
 
     card = card_line()
     print(card, flush=True)
     t_start = t0 = time.perf_counter()
-    _build.build(["rbf_gram", "radial_contract"])
-    gram._kernel_library()
-    contract._kernel_library()
+    _build.build(["rbf_gram", "radial_contract", "radial_mvm", "lowrank_contract"])
+    for module in (gram, contract, mvm, lowrank_contract):
+        module._kernel_library()
     print(f"# build {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
@@ -2037,6 +2570,8 @@ def main() -> int:
 
     gram_rows = gram_phase(torch, gram)
     contract_rows = contraction_phase(torch, contract)
+    mvm_rows = mvm_phase(torch, mvm)
+    lowrank_rows = lowrank_phase(torch, lowrank_contract)
     serving = serving_phase(torch, gram, contract)
     training = training_phase(torch, gram, contract)
     general_training = general_training_phase(torch, gram, contract)
@@ -2051,14 +2586,25 @@ def main() -> int:
     dkl = dkl_studentt_svgp_phase(torch, gram, contract)
     zoo_grams = zoo_grams_phase(torch, gram, contract)
     zoo_training = zoo_training_phase(torch, gram, contract)
+    reference = start_iterative_reference()
+    try:
+        it_model, it_queries, iterative_training = iterative_training_phase(torch)
+        iterative_serving = iterative_serving_phase(torch, it_model, it_queries)
+        del it_model
+        torch.cuda.empty_cache()
+        iterative_training["card_vs_cpu"] = iterative_card_vs_cpu(torch, reference)
+    finally:
+        stop_process(reference[0])
 
     paths = {"serving": serving["launches"], "training": training["launches"],
              "general_training": general_training["launches"], "observe_loop": observe_loop["launches"],
              "svgp_training": svgp_training["launches"], "vfe_serving": vfe_serving["launches"],
              "svgp_serving": svgp_serving["launches"], "svgp_captured": svgp_captured["launches"],
              "dkl_studentt_svgp": dkl["launches"], "zoo_grams": zoo_grams["launches"],
-             "zoo_training": zoo_training["launches"]}
+             "zoo_training": zoo_training["launches"], "iterative_training": iterative_training["launches"],
+             "iterative_serving": iterative_serving["launches"]}
     g, c = gram_rows[0], contract_rows[0]
+    m9, lr = mvm_rows["timed"][9], lowrank_rows["timed"]
     kernels_line = {"kernels": [
         {
             "name": "rbf_gram",
@@ -2093,12 +2639,49 @@ def main() -> int:
             "shape": [c["n"], D, 1],
             "dtype": c["dtype"],
         },
+        {
+            "name": "gram_mvm",
+            "route": "cuda",
+            "source": "gptorch_tpu_torch/csrc/radial_mvm.cu",
+            "replaces": "gptorch_tpu/ops/iterative.py:92",
+            "launches": sum(p["gram_mvm"] for p in paths.values()),
+            "launches_by_path": {k: p["gram_mvm"] for k, p in paths.items()},
+            "max_abs_err": m9["max_abs_err"],
+            "max_rel_err": m9["max_rel_err"],
+            "ms": m9["ms"],
+            "plain_ms": m9["plain_ms"],
+            "bound_ms": m9["bound_ms"],
+            "bound_by": m9["bound_by"],
+            "library_ms": None,
+            "shape": [IT_N, D, 9],
+            "dtype": "float32",
+            "k1_ms": mvm_rows["timed"][1]["ms"],
+            "k1_bound_ms": mvm_rows["timed"][1]["bound_ms"],
+        },
+        {
+            "name": "lowrank_contractions",
+            "route": "cuda",
+            "source": "gptorch_tpu_torch/csrc/lowrank_contract.cu",
+            "replaces": "gptorch_tpu/ops/iterative.py:454",
+            "launches": sum(p["lowrank_contractions"] for p in paths.values()),
+            "launches_by_path": {k: p["lowrank_contractions"] for k, p in paths.items()},
+            "max_abs_err": lr["max_abs_err"],
+            "max_rel_err": lr["max_rel_err"],
+            "ms": lr["ms"],
+            "plain_ms": lr["plain_ms"],
+            "bound_ms": lr["bound_ms"],
+            "bound_by": lr["bound_by"],
+            "library_ms": None,
+            "shape": [IT_N, D, lr["r"]],
+            "dtype": "float32",
+        },
     ]}
     print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, peak device memory: serving "
           f"{serving['peak_mem_gb']:.1f} GB, training {training['peak_mem_gb']:.1f} GB, general training "
           f"{general_training['peak_mem_gb']:.1f} GB, observe loop {observe_loop['peak_mem_gb']:.1f} GB, svgp "
           f"training {svgp_training['peak_mem_gb']:.3f} GB, dkl {dkl['peak_mem_gb']:.3f} GB, zoo training "
-          f"{zoo_training['peak_mem_gb']:.1f} GB; launches count each captured step's recorded launches once per "
+          f"{zoo_training['peak_mem_gb']:.1f} GB, iterative training {iterative_training['peak_mem_gb']:.3f} GB; "
+          f"launches count each captured step's recorded launches once per "
           f"replay; total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2110,6 +2693,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--zoo-cpu-reference"]:
         sys.exit(zoo_cpu_reference(sys.argv[2]))
+    if sys.argv[1:2] == ["--iterative-cpu-reference"]:
+        sys.exit(iterative_cpu_reference(sys.argv[2]))
     try:
         sys.exit(main())
     except CheckFailed as exc:

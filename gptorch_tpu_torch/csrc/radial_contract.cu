@@ -70,10 +70,13 @@
 // the first CUDA error.
 
 #include <cuda_runtime.h>
-#include <float.h>
 #include <stdint.h>
 
+#include "radial_maps.cuh"
+
 namespace {
+
+using namespace radial;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -81,9 +84,6 @@ constexpr int kStages = 4;
 constexpr int kMaxDy = 32;
 constexpr int kMaxD = 32;
 constexpr int kFinishThreads = 256;
-constexpr double kLog2e = 1.4426950408889634;
-
-enum Kind { kRbf = 0, kMatern12 = 1, kMatern32 = 2, kMatern52 = 3, kRq = 4 };
 
 // The tile shape for an item size and a padded feature width: columns per
 // stage (a warp's 32 16-byte loads) and rows per strip (8 warps of R rows,
@@ -95,52 +95,6 @@ __host__ __device__ constexpr int rows_for(int itemsize, int maxd) {
 __host__ __device__ constexpr int strip_for(int itemsize, int maxd) { return kWarps * rows_for(itemsize, maxd); }
 int max_d_for(int d) { return d <= 8 ? 8 : (d <= 16 ? 16 : 32); }
 int64_t round_up(int64_t v, int64_t m) { return (v + m - 1) / m * m; }
-
-// exp(c * x) for a constant c: in float32 one multiply (c log2(e) folded) and
-// the hardware exp2, which flushes results below 2^-126 to 0.
-__device__ __forceinline__ float exp_scaled(float x, float c) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * (c * float(kLog2e))));
-  return y;
-}
-__device__ __forceinline__ double exp_scaled(double x, double c) { return exp(c * x); }
-// In float32 the hardware's approximate log2 (scaled by ln 2), square root
-// and reciprocal: one instruction each, within about 2^-22 relative (log2:
-// absolute near 1), far inside the kernel's tolerance.  In float64 IEEE's.
-__device__ __forceinline__ float log_t(float v) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(v));
-  return y * float(1.0 / kLog2e);
-}
-__device__ __forceinline__ double log_t(double v) { return log(v); }
-__device__ __forceinline__ float sqrt_t(float v) {
-  float y;
-  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(v));
-  return y;
-}
-__device__ __forceinline__ double sqrt_t(double v) { return sqrt(v); }
-__device__ __forceinline__ float rcp_t(float v) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(v));
-  return y;
-}
-__device__ __forceinline__ double rcp_t(double v) { return 1.0 / v; }
-__device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
-
-// One 16-byte shared load into CPT values.
-__device__ __forceinline__ void lds16(float (&dst)[4], const float* src) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x;
-  dst[1] = v.y;
-  dst[2] = v.z;
-  dst[3] = v.w;
-}
-__device__ __forceinline__ void lds16(double (&dst)[2], const double* src) {
-  const double2 v = *reinterpret_cast<const double2*>(src);
-  dst[0] = v.x;
-  dst[1] = v.y;
-}
 
 // Asynchronous copies into shared memory; src_bytes < size zero-fills the rest.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
@@ -156,52 +110,6 @@ __device__ __forceinline__ void cp_async_small(void* dst, const void* src, int s
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
-
-// _r_floor (gpr_fast.py:76-79): max(1e-40, the dtype's smallest normal).
-template <typename T> struct Floor;
-template <> struct Floor<float> { static __device__ __forceinline__ float value() { return FLT_MIN; } };
-template <> struct Floor<double> { static __device__ __forceinline__ double value() { return 1e-40; } };
-
-// The radial maps of gpr_fast.py:82-136 at var = 1; half_ia = 1 / (2 alpha).
-template <typename T, int KIND>
-__device__ __forceinline__ void radial(T r2, T alpha, T half_ia, T& G, T& E, T& F) {
-  const T sqrt3 = T(1.7320508075688772);
-  const T sqrt5 = T(2.23606797749979);
-  F = T(0);
-  if (KIND == kRbf) {
-    G = exp_scaled(r2, T(-0.5));
-    E = G;
-  } else if (KIND == kRq) {
-    const T u = fma_t(r2, half_ia, T(1));
-    const T iu = rcp_t(u);
-    const T lu = log_t(u);
-    G = exp_scaled(lu, -alpha);
-    E = G * iu;
-    F = G * (T(0.5) * r2 * iu - alpha * lu);
-  } else {
-    const T r2_floor = Floor<T>::value();
-    const T r = sqrt_t(r2 > r2_floor ? r2 : r2_floor);
-    if (KIND == kMatern12) {
-      G = exp_scaled(r, T(-1));
-      E = r2 > r2_floor ? G * rcp_t(r) : T(0);
-    } else if (KIND == kMatern32) {
-      const T e = exp_scaled(r, -sqrt3);
-      G = (T(1) + sqrt3 * r) * e;
-      E = T(3) * e;
-    } else {
-      const T e = exp_scaled(r, -sqrt5);
-      G = (T(1) + sqrt5 * r + T(5.0 / 3.0) * r2) * e;
-      E = T(5.0 / 3.0) * (T(1) + sqrt5 * r) * e;
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // xs and A transposed and zero-padded: xst (maxd, npad), at (dy, npad).
 template <typename T>
@@ -367,7 +275,7 @@ contract_kernel(const T* __restrict__ kinv, const T* __restrict__ a, const T* __
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         T G, E, F;
-        radial<T, KIND>(v[r][c], alpha, half_ia, G, E, F);
+        maps<T, KIND>(v[r][c], alpha, half_ia, G, E, F);
         if (KIND != kRbf) ts = fma_t(w[c], G, ts);
         if (KIND == kRq) te = fma_t(w[c], F, te);
         const T m = w[c] * E;

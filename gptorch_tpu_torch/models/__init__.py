@@ -3,6 +3,7 @@ from .gpr import GPR
 from .posterior import (
     FantasyGPRChain,
     GPRPosterior,
+    IterativeGPRPosterior,
     LowRankPosterior,
     Posterior,
     ServingGPRPosterior,
@@ -11,6 +12,7 @@ from .posterior import (
     SVGPPosterior,
     fitc_posterior,
     gpr_posterior,
+    iterative_gpr_posterior,
     svgp_posterior,
     vfe_posterior,
 )
@@ -22,6 +24,7 @@ __all__ = [
     "GPModel",
     "GPR",
     "GPRPosterior",
+    "IterativeGPRPosterior",
     "LowRankPosterior",
     "Posterior",
     "SVGP",
@@ -32,6 +35,7 @@ __all__ = [
     "VFE",
     "fitc_posterior",
     "gpr_posterior",
+    "iterative_gpr_posterior",
     "svgp_posterior",
     "vfe_posterior",
 ]

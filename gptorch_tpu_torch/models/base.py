@@ -155,6 +155,11 @@ class GPModel(Predictive):
         host loop that a captured CUDA graph cannot hold)."""
         return True
 
+    def _capturable(self) -> bool:
+        """Whether a training step of this model can be captured as a CUDA
+        graph whatever the jitter policy (no host read of its own)."""
+        return True
+
     def _loss(self, x=None, y=None, generator=None):
         """-(log_likelihood + log_prior)."""
         return -(self.log_likelihood(x=x, y=y, generator=generator) + self.log_prior())

@@ -23,15 +23,22 @@ the fused radial path's backward launches the contraction kernel, which
 takes d ≤ 32 and dy ≤ 32 (:mod:`~gptorch_tpu_torch.ops.contract`); wider
 inputs there take the kernel-general path, which computes the same NLML and
 gradient.  ``objective="loo"`` trains on the leave-one-out log predictive
-probability instead (:meth:`GPR.loo_log_likelihood`).  The iterative-solver
-arguments are kept for signature parity: ``solver="iterative"`` is not
-ported.
+probability instead (:meth:`GPR.loo_log_likelihood`).
+
+``solver="iterative"`` takes the matrix-free BBMM path first
+(:mod:`~gptorch_tpu_torch.ops.iterative`: batched preconditioned CG and
+stochastic Lanczos quadrature through the hand-written kernels K3 and K4 on
+the card): O(n·probes) memory, for n past the factorization's n² buffers.
+It takes the radial configurations of the fused path at any n; any other
+configuration raises at construction, and a minibatched loss raises at call
+time, so the matrix-free path never falls back to a dense one.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .. import kernels as _k
@@ -42,6 +49,7 @@ from ..likelihoods import FixedNoiseGaussian, Gaussian
 from ..ops.contract import kernel_takes
 from ..ops.gpr_fast import radial_nlml
 from ..ops.gpr_general import general_nlml
+from ..ops.iterative import radial_nlml_iterative, radial_slq_diagnostics
 from .base import GPModel
 
 #: Auto-routing threshold: below this n the generic autograd path is cheap;
@@ -91,9 +99,7 @@ class GPR(GPModel):
     ):
         if objective not in ("nlml", "loo"):
             raise ValueError("objective must be 'nlml' or 'loo'")
-        if solver == "iterative":
-            raise NotImplementedError("solver='iterative' is not ported yet")
-        if solver != "dense":
+        if solver not in ("dense", "iterative"):
             raise ValueError("solver must be 'dense' or 'iterative'")
         if fast_precision not in ("highest", "default"):
             raise ValueError("fast_precision must be 'highest' or 'default'")
@@ -107,6 +113,25 @@ class GPR(GPModel):
         self.fast_precision = fast_precision
         self.objective = objective
         self.solver = solver
+        if solver == "iterative" and not self._fast_eligible_config():
+            # fail at construction: the matrix-free path exists to avoid the
+            # dense one, so it never falls back to it
+            raise ValueError(
+                "solver='iterative' requires a radial kernel (Rbf/Matern*/RationalQuadratic incl. ARD), "
+                f"Zero mean, and Exp bijectors; got kernel={type(kernel).__name__}, "
+                f"mean={type(self.mean_function).__name__}"
+            )
+        self.probes = int(probes)
+        self.max_cg_iters = int(max_cg_iters)
+        self.precond_rank = int(min(precond_rank, self.X.shape[0]))
+        self.cg_tol = float(cg_tol)
+        self.mvm_slab = int(mvm_slab)
+        if solver == "iterative":
+            # standard-normal seeds drawn as the JAX package draws them,
+            # warped to N(0, P) inside the op; fixed: a deterministic,
+            # smooth objective (common random numbers)
+            seeds = np.random.RandomState(probe_seed).randn(self.X.shape[0] + self.precond_rank, self.probes)
+            self.register_buffer("probe_seeds", torch.as_tensor(seeds, dtype=self.X.dtype, device=self.X.device))
 
     def _fast_kind(self):
         for kind, cls in _FAST_KINDS:
@@ -155,16 +180,57 @@ class GPR(GPModel):
             ok = isinstance(self.kernel.alpha.bijector, Exp)
         return ok
 
+    def _iterative_eligible(self, x):
+        """Whether the loss at ``x`` takes the matrix-free path: always for
+        ``solver="iterative"`` (whose configuration the constructor checked)
+        on the model's own n; a minibatch raises."""
+        if self.solver != "iterative":
+            return False
+        if x.shape[0] != self.X.shape[0]:
+            raise ValueError(
+                f"solver='iterative' GPR got x with {x.shape[0]} rows but was built with n={self.X.shape[0]}: "
+                "minibatched loss is not supported on the matrix-free path (it would silently fall back to "
+                "the dense O(n^2) autograd path)"
+            )
+        return self._fast_eligible_config()
+
+    def _iterative_args(self):
+        """The log hyperparameters the iterative ops take: (kind, log ℓ,
+        log σ², log σ_n², log α or None)."""
+        kind = self._fast_kind()
+        log_extra = self.kernel.alpha.raw.reshape((1,)) if kind == "rq" else None
+        return (
+            kind,
+            self.kernel.length_scales.raw,
+            self.kernel.variance.raw.reshape(()),
+            self.likelihood.variance.raw.reshape(()),
+            log_extra,
+        )
+
+    def _capturable(self) -> bool:
+        """The iterative solver's SLQ runs a batched ``torch.linalg.eigh``,
+        which checks its status on the host."""
+        return self.solver != "iterative"
+
     def _reads_jitter_policy(self) -> bool:
-        """The fused paths factor with fixed jitters; the generic path and
-        the leave-one-out objective go through ``functions.cholesky``."""
-        return self.objective == "loo" or not (self._fast_eligible(self.X) or self._general_eligible(self.X))
+        """The fused and iterative paths use fixed jitters; the generic path
+        and the leave-one-out objective go through ``functions.cholesky``."""
+        if self.objective == "loo":
+            return True
+        return not (self.solver == "iterative" or self._fast_eligible(self.X) or self._general_eligible(self.X))
 
     def log_likelihood(self, x=None, y=None, generator=None):
         """The log marginal likelihood; ``generator`` is accepted for the
         common signature and unused (no minibatches)."""
         x = x if x is not None else self.X
         y = y if y is not None else self.Y
+        if self._iterative_eligible(x):
+            kind, log_ell, log_var, log_noise, log_extra = self._iterative_args()
+            return -radial_nlml_iterative(
+                kind, log_ell, log_var, log_noise, x.detach(), y.detach(), self.probe_seeds,
+                self.fast_jitter, self.mvm_slab, self.probes, self.max_cg_iters, self.precond_rank,
+                self.cg_tol, log_extra,
+            )
         if self._fast_eligible(x, y):
             # x and y are data: detached, so no caller silently gets a zero
             # gradient for them from the closed-form backward.
@@ -237,16 +303,60 @@ class GPR(GPModel):
             return self.kernel.K(x, diag=noise)
         return add_diag(self.kernel.K(x), noise)
 
-    def posterior(self):
-        """Cached predictive posterior: factorizes Kyy once; each later
-        predict costs one cross-Gram and one triangular solve (see
-        :mod:`gptorch_tpu_torch.models.posterior`)."""
+    def iterative_diagnostics(self):
+        """SLQ/CG estimator diagnostics of a ``solver="iterative"`` model
+        (:func:`~gptorch_tpu_torch.ops.iterative.radial_slq_diagnostics`) as
+        numpy arrays: the per-probe logdet spread (``nlml_stderr``, its 1σ
+        Monte-Carlo error in NLML units), the CG iterations used and the
+        exact final residuals.  Use it to size ``probes`` and
+        ``max_cg_iters`` on evidence for the data's n and conditioning."""
+        if not self._iterative_eligible(self.X):
+            raise ValueError("iterative_diagnostics requires solver='iterative'")
+        kind, log_ell, log_var, log_noise, log_extra = self._iterative_args()
+        out = radial_slq_diagnostics(
+            kind, log_ell, log_var, log_noise, self.X, self.Y, self.probe_seeds, self.fast_jitter,
+            self.mvm_slab, self.probes, self.max_cg_iters, self.precond_rank, self.cg_tol, log_extra,
+        )
+        return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+    def posterior(self, love_rank=None):
+        """Cached predictive posterior: factorizes Kyy once (dense solver) or
+        CG-solves α once (iterative solver); each later predict costs one
+        cross-Gram and a triangular solve, or a CG solve for the variances
+        (see :mod:`gptorch_tpu_torch.models.posterior`).
+
+        :param love_rank: iterative solver only: also cache a rank-k LOVE
+            root-inverse (Pleiss et al. 2018), so a variance query costs one
+            (k, n)·(n, n*) product instead of a CG solve.  The rank must
+            cover the kernel spectrum's effective rank (~128 for smooth
+            kernels on 1-2-D inputs, 256-512 for d ≳ 3 or short length
+            scales).  ``None`` keeps CG-exact variances.
+        """
+        if self._iterative_eligible(self.X):
+            from .posterior import iterative_gpr_posterior
+
+            return iterative_gpr_posterior(self, love_rank=love_rank)
+        if love_rank is not None:
+            raise ValueError(
+                "love_rank applies to solver='iterative' (the dense posterior's variances are already exact "
+                "via the cached Cholesky factor)"
+            )
         from .posterior import gpr_posterior
 
         return gpr_posterior(self)
 
+    def predict_uncertain(self, x_mean, x_var):
+        """Posterior moments at uncertain inputs: not ported yet."""
+        raise NotImplementedError(
+            "predict_uncertain needs the psi-statistics kernels (ekernels), which are not ported yet: "
+            "ROADMAP queue 1, item 6"
+        )
+
     def _predict(self, x_new, diag=True):
-        """Posterior p(f* | y) at x_new."""
+        """Posterior p(f* | y) at x_new (an iterative model predicts through
+        its posterior, CG-exact)."""
+        if self._iterative_eligible(self.X):
+            return self.posterior()._predict(x_new, diag=diag)
         x = self.X
         k_ys = self.kernel.K(x, x_new)
         L = cholesky(self._compute_kyy(x=x), blocked=False)

@@ -399,6 +399,88 @@ class ServingGPRPosterior(Posterior):
         )
 
 
+class IterativeGPRPosterior(Posterior):
+    """Matrix-free exact-GP posterior: α = K̂⁻¹(Y − m(X)) obtained by
+    preconditioned CG (cached); predictions never store K.
+
+        mean = K(x*, X) α + m(x*)
+        var  = Kdiag(x*) − Σ (K(X, x*) ⊙ K̂⁻¹K(X, x*))   (diag; a CG solve per call)
+
+    With a LOVE cache (``R_love``, :func:`~gptorch_tpu_torch.ops.iterative.lanczos_root_inverse`)
+    the variance solve is replaced by the cached rank-k root K̂⁻¹ ≈ R Rᵀ:
+
+        var  = Kdiag(x*) − Σ (Rᵀ K(X, x*))²               (one product, no CG)
+    """
+
+    def __init__(self, kernel, likelihood, mean_function, X, alpha, kind, fast_jitter, mvm_slab, max_cg_iters,
+                 cg_tol, Lpc, R_love=None):
+        super().__init__(kernel, likelihood, mean_function)
+        self.X = X
+        self.alpha = alpha  # (n, dy) = K̂⁻¹ (Y − m(X))
+        self.kind = kind
+        self.fast_jitter = fast_jitter
+        self.mvm_slab = mvm_slab
+        self.max_cg_iters = max_cg_iters
+        self.cg_tol = cg_tol
+        self.Lpc = Lpc  # the pivoted-Cholesky preconditioner's factor (n, k)
+        # rq's log α, read from the frozen kernel like the other hyperparameters
+        self.log_extra = self.kernel.alpha.raw.reshape((1,)) if kind == "rq" else None
+        self.R_love = R_love  # the LOVE root-inverse cache (n, love_rank), or None
+
+    def _solve(self, B):
+        from ..ops.iterative import mbcg, radial_mvm, woodbury_solve
+
+        le = self.kernel.length_scales.raw
+        lv = self.kernel.variance.raw.reshape(())
+        ln = self.likelihood.variance.raw.reshape(())
+        noise = torch.exp(ln) + self.fast_jitter
+        X, *_ = mbcg(
+            lambda V: radial_mvm(self.kind, le, lv, ln, self.X, V, self.fast_jitter, self.mvm_slab, self.log_extra),
+            lambda V: woodbury_solve(self.Lpc, noise, V),
+            B,
+            self.max_cg_iters,
+            self.cg_tol,
+        )
+        return X
+
+    def _predict(self, x_new, diag=True):
+        k_xs = self.kernel.K(self.X, x_new)  # (n, n*)
+        mean = k_xs.T @ self.alpha + self.mean_function(x_new)
+        if self.R_love is not None:
+            W2 = self.R_love.T @ k_xs  # (love_rank, n*): the only per-query solve work
+            if diag:
+                return mean, (self.kernel.Kdiag(x_new) - torch.sum(W2 * W2, dim=0))[:, None].expand(mean.shape)
+            return mean, self.kernel.K(x_new) - W2.T @ W2
+        W = self._solve(k_xs)  # K̂⁻¹ K(X, x*)
+        if diag:
+            return mean, (self.kernel.Kdiag(x_new) - torch.sum(k_xs * W, dim=0))[:, None].expand(mean.shape)
+        return mean, self.kernel.K(x_new) - k_xs.T @ W
+
+
+@torch.no_grad()
+def iterative_gpr_posterior(model, love_rank=None) -> IterativeGPRPosterior:
+    """The matrix-free posterior of a ``solver="iterative"`` GPR: the
+    preconditioner, α by CG, and with ``love_rank`` the LOVE factor from
+    that many Lanczos steps started at the model's first probe seed."""
+    from ..ops.iterative import lanczos_root_inverse, pivoted_cholesky, radial_mvm
+
+    kind, le, lv, ln, log_extra = model._iterative_args()
+    Lpc = pivoted_cholesky(kind, le, lv, model.X, model.precond_rank, log_extra)
+    R_love = None
+    if love_rank:
+        R_love = lanczos_root_inverse(
+            lambda V: radial_mvm(kind, le, lv, ln, model.X, V, model.fast_jitter, model.mvm_slab, log_extra),
+            model.probe_seeds[: model.X.shape[0], 0].to(model.X.dtype),
+            int(min(love_rank, model.X.shape[0])),
+        )
+    post = IterativeGPRPosterior(
+        model.kernel, model.likelihood, model.mean_function, model.X, torch.zeros_like(model.Y), kind,
+        model.fast_jitter, model.mvm_slab, model.max_cg_iters, model.cg_tol, Lpc, R_love,
+    )
+    post.alpha = post._solve(model.Y - post.mean_function(model.X))
+    return post
+
+
 def _gpr_factors(model):
     L = cholesky(model._compute_kyy(), blocked=False)
     V = trtrs(model.Y - model.mean_function(model.X), L)

@@ -48,12 +48,9 @@ def _maps(xs, log_var, kind, log_extra):
     """The radial maps (G, E, F) of ``kind`` on all pairs of ``xs``, F None
     for kinds without an extra hyperparameter, by the JAX package's formula
     (r² by the norm identity, :func:`~gptorch_tpu_torch.ops.gpr_fast._r2_full`)."""
-    from .gpr_fast import _RADIALS, _RADIALS_X, _r2_full
+    from .gpr_fast import _r2_full, _radial_maps
 
-    r2, var = _r2_full(xs), torch.exp(log_var)
-    if kind in _RADIALS_X:
-        return _RADIALS_X[kind](r2, var, log_extra)
-    return (*_RADIALS[kind](r2, var), None)
+    return _radial_maps(kind, _r2_full(xs), torch.exp(log_var), log_extra)
 
 
 def radial_contractions_plain(Kinv, A, xs, log_var, dy, kind, log_extra=None):

@@ -118,6 +118,14 @@ def _radial_rq(r2, var, log_extra):
 _RADIALS_X = {"rq": _radial_rq}
 
 
+def _radial_maps(kind, r2, var, log_extra=None):
+    """(G, E, F) of ``kind`` at ``r2``; F is None for the kinds without an
+    extra hyperparameter."""
+    if kind in _RADIALS_X:
+        return _RADIALS_X[kind](r2, var, log_extra)
+    return (*_RADIALS[kind](r2, var), None)
+
+
 def _scaled(x, log_ell):
     # Divide (not multiply by the reciprocal): the same x̃ as the model
     # path's X/ℓ, which matters for the kinked Materns near r = 0.
@@ -140,11 +148,7 @@ def _gram(xs, log_var, kind, diag=None, log_extra=None):
     the card), the plain maps for the other kinds."""
     if kind == "rbf":
         return rbf_gram(xs.contiguous(), var=torch.exp(log_var), diag=diag)
-    r2 = _r2_full(xs)
-    if kind in _RADIALS_X:
-        G = _RADIALS_X[kind](r2, torch.exp(log_var), log_extra)[0]
-    else:
-        G = _RADIALS[kind](r2, torch.exp(log_var))[0]
+    G = _radial_maps(kind, _r2_full(xs), torch.exp(log_var), log_extra)[0]
     if diag is not None:
         G.diagonal().add_(diag)
     return G

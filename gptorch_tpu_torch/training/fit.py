@@ -245,10 +245,16 @@ def captures(model, method: str) -> bool:
       evaluation);
     * the ``adaptive`` jitter policy when the model's loss factors through
       :func:`~gptorch_tpu_torch.functions.cholesky`
-      (``model._reads_jitter_policy()``): its probe is a host loop.
+      (``model._reads_jitter_policy()``): its probe is a host loop;
+    * a model whose step holds a host read of its own
+      (``model._capturable()`` is False): ``GPR(solver="iterative")``, whose
+      SLQ's batched ``torch.linalg.eigh`` checks its status on the host.  A
+      step there is seconds of matrix-free products on the card (about 130
+      K3 launches at n = 100000), so the host's few thousand launches per
+      step cost under 1 % of it eagerly.
 
     Those, and every run on the CPU, go eagerly."""
-    if model.device.type != "cuda" or method == "LBFGS":
+    if model.device.type != "cuda" or method == "LBFGS" or not model._capturable():
         return False
     return not (settings.config.jitter_policy == "adaptive" and model._reads_jitter_policy())
 

@@ -17,7 +17,7 @@ import torch
 from gptorch_tpu_torch import kernels, likelihoods, mean_functions, nn, sampling, settings
 from gptorch_tpu_torch.models import FITC, GPR, SVGP, VFE
 from gptorch_tpu_torch.module import get_trainable
-from gptorch_tpu_torch.ops import contract, gpr_fast, gram
+from gptorch_tpu_torch.ops import contract, gpr_fast, gram, iterative, lowrank_contract, mvm
 from gptorch_tpu_torch.training import fit
 
 
@@ -558,9 +558,9 @@ def test_captured_exact_training_matches_eager_on_the_card(cuda, route):
     assert fit.captures(model, "Adam") and run["captured"]
     launches = run["launches_per_step"]
     if route == "fused":
-        assert launches == {"rbf_gram": 1, "radial_contractions": 1}
+        assert launches == {"rbf_gram": 1, "radial_contractions": 1, "gram_mvm": 0, "lowrank_contractions": 0}
     else:  # the Gram, the chunk-size probe and the one VJP chunk
-        assert launches == {"rbf_gram": 3, "radial_contractions": 0}
+        assert launches == {"rbf_gram": 3, "radial_contractions": 0, "gram_mvm": 0, "lowrank_contractions": 0}
     torch.testing.assert_close(l1, l0, rtol=1e-10, atol=0)
     for k in v0:
         torch.testing.assert_close(v1[k], v0[k], rtol=1e-9, atol=1e-12)
@@ -708,3 +708,122 @@ def test_dkl_studentt_svgp_card_matches_cpu(cuda):
     scale = max(float(g.abs().max()) for g in out["cpu"][1].values())
     for k, g in out["cuda"][1].items():
         torch.testing.assert_close(g, out["cpu"][1][k], rtol=0, atol=1e-8 * scale)
+
+
+# -- the matrix-free exact GP: K3 (gram_mvm) and K4 (lowrank_contractions) -------
+
+RADIAL_KINDS = ["rbf", "matern12", "matern32", "matern52", "rq"]
+# against the twins in float64 on the same inputs, relative to the sums of
+# absolute terms (chip_smoke.py's MVM_TOL, with its reasons)
+MVM_TOL = {torch.float32: 2e-5, torch.float64: 1e-10}
+
+
+def _radial_inputs(n, d, cols, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xs = torch.randn(n, d, generator=g, device="cuda", dtype=dtype) / 1.1
+    V = torch.randn(n, cols, generator=g, device="cuda", dtype=dtype)
+    return xs, V, torch.tensor(math.log(1.3), device="cuda", dtype=dtype), torch.tensor(
+        [math.log(0.7)], device="cuda", dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", RADIAL_KINDS)
+@pytest.mark.parametrize("n, d, k", [(1, 8, 1), (255, 3, 9), (257, 8, 1), (300, 17, 16), (513, 32, 40),
+                                     (1000, 8, 256)])
+def test_mvm_kernel_matches_plain(cuda, dtype, kind, n, d, k):
+    xs, V, lv, le = _radial_inputs(n, d, k, dtype, seed=n + k)
+    before = mvm.gram_mvm.launches
+    got = mvm.gram_mvm(kind, xs, lv, 0.101, V, log_extra=le)
+    again = mvm.gram_mvm(kind, xs, lv, 0.101, V, log_extra=le)
+    torch.cuda.synchronize()
+    assert mvm.gram_mvm.launches == before + 2
+    assert torch.equal(got, again)  # no atomics: the same bits from run to run
+    ref = (xs.double(), lv.double(), 0.101)
+    want = mvm.gram_mvm_plain(kind, *ref, V.double(), 128, le.double())
+    scale = mvm.gram_mvm_plain(kind, *ref, V.double().abs(), 128, le.double())
+    assert float(((got.double() - want).abs() / scale).max()) <= MVM_TOL[dtype]
+
+
+def test_mvm_kernel_rejects_wide_inputs(cuda):
+    xs, V, lv, _ = _radial_inputs(10, 33, 2, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="d <= 32"):
+        mvm.gram_mvm("rbf", xs, lv, 0.1, V)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", RADIAL_KINDS)
+@pytest.mark.parametrize("n, d, r", [(1, 8, 1), (255, 3, 9), (257, 8, 17), (300, 17, 33), (1000, 32, 8)])
+def test_lowrank_kernel_matches_plain(cuda, dtype, kind, n, d, r):
+    xs, W, lv, le = _radial_inputs(n, d, 2 * r, dtype, seed=n + r)
+    Wl, Wr = W[:, :r].contiguous(), W[:, r:].contiguous()
+    var = torch.exp(lv)
+    before = lowrank_contract.lowrank_contractions.launches
+    got = lowrank_contract.lowrank_contractions(kind, xs, var, Wl, Wr, log_extra=le)
+    again = lowrank_contract.lowrank_contractions(kind, xs, var, Wl, Wr, log_extra=le)
+    torch.cuda.synchronize()
+    assert lowrank_contract.lowrank_contractions.launches == before + 2 * -(-r // lowrank_contract.MAX_RANK)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = (kind, xs.double(), var.double(), Wl.double(), Wr.double())
+    want = lowrank_contract.lowrank_contractions_plain(*ref, 128, le.double())
+    scales = lowrank_contract.lowrank_scales(*ref, 128, le.double())
+    # the twin's grad_ell by the norm identity cancels: Σ rowsum·x̃² +
+    # Σ colsum·x̃² − 2 Σ x̃·(M x̃) leaves up to 4u·Σ|W|E(x̃ᵢq² + x̃ⱼq²) in
+    # float64, which matters where the true terms are 0 (n = 1: the
+    # diagonal alone)
+    x64 = xs.double()
+    _, E, _ = gpr_fast._radial_maps(kind, torch.cdist(x64, x64) ** 2, var.double(), le.double())
+    WE = (Wl.double().abs() @ Wr.double().abs().T) * E.abs()
+    identity = 4 * 2.0**-52 * (WE.sum(dim=1) @ x64**2 + WE.sum(dim=0) @ x64**2)
+    for a, b, s, floor in zip(got, want, scales, (0.0, identity, 0.0)):
+        assert bool(torch.all((a.double() - b).abs() <= MVM_TOL[dtype] * s + floor))
+
+
+def test_radial_mvm_gradient_on_the_card(cuda):
+    """iterative.radial_mvm's backward (K3 for ∂/∂V, K4 for the log
+    hyperparameters) against the CPU's twins, float64."""
+    rng = np.random.RandomState(3)
+    x, V, C = rng.randn(300, 5), rng.randn(300, 4), rng.randn(300, 4)
+    theta = [np.log([0.9, 1.2, 0.8, 1.1, 1.0]), np.asarray(np.log(1.3)), np.asarray(np.log(0.1)), np.log([0.7])]
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = [torch.tensor(t, device=device, requires_grad=True) for t in theta]
+        v = torch.tensor(V, device=device, requires_grad=True)
+        y = iterative.radial_mvm("rq", *params[:3], torch.tensor(x, device=device), v, 1e-3, 128, params[3])
+        torch.sum(y * torch.tensor(C, device=device)).backward()
+        out[device] = [y.detach().cpu()] + [p.grad.cpu() for p in params + [v]]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10)
+
+
+def test_iterative_gpr_card_matches_cpu(cuda):
+    """GPR(solver="iterative") at n = 1024 in float64, card (K3, K4)
+    against the CPU's twins from the same seeds: loss and gradient to 1e-8,
+    the LOVE posterior's moments, and fit_scan running eagerly.  CG solves
+    to 1e-10, so the gradient's terms, linear in the solves, are not held
+    back by the stopping tolerance (chip_smoke.py's iterative_card_vs_cpu)."""
+    rng = np.random.RandomState(4)
+    x = rng.randn(1024, 4)
+    y = np.sin(x[:, :1]) + 0.1 * rng.randn(1024, 1)
+    xq = rng.randn(7, 4)
+    out = {}
+    with _float64():
+        for device in ("cuda", "cpu"):
+            model = GPR(x, y, kernels.Rbf(4, ARD=True), likelihood=likelihoods.Gaussian(0.1), solver="iterative",
+                        probes=8, max_cg_iters=128, precond_rank=32, cg_tol=1e-10, device=device)
+            before = (mvm.gram_mvm.launches, lowrank_contract.lowrank_contractions.launches)
+            loss = model.loss()
+            loss.backward()
+            launched = (mvm.gram_mvm.launches - before[0], lowrank_contract.lowrank_contractions.launches - before[1])
+            moments = model.posterior(love_rank=64).predict_f(xq)
+            out[device] = (float(loss.detach()), {k: v.grad.cpu() for k, v in get_trainable(model).items()},
+                           moments, launched)
+            if device == "cuda":
+                losses = model.fit_scan("Adam", max_iter=2)
+                assert not fit.fit_scan.last_run["captured"] and bool(torch.isfinite(losses).all())
+    assert out["cuda"][3][0] >= 64 and out["cuda"][3][1] == 1 and out["cpu"][3] == (0, 0)
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-8)
+    scale = max(float(g.abs().max()) for g in out["cpu"][1].values())
+    for k, g in out["cuda"][1].items():
+        torch.testing.assert_close(g, out["cpu"][1][k], rtol=0, atol=1e-8 * scale)
+    for a, b in zip(out["cuda"][2], out["cpu"][2]):
+        np.testing.assert_allclose(a, b, rtol=1e-7, atol=1e-9)

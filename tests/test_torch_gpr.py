@@ -139,9 +139,13 @@ def test_load_trainable_rejects_other_structures():
 
 
 def test_unported_options_raise():
+    """solver='iterative' is ported; a configuration it cannot take (a
+    composite kernel) raises at construction, as in the JAX package."""
     x, y = _data()
-    with pytest.raises(NotImplementedError):
-        GPR(x, y, kernels.Rbf(2), solver="iterative", device="cpu")
+    with pytest.raises(ValueError, match="solver='iterative' requires a radial kernel"):
+        GPR(x, y, kernels.Rbf(2) + kernels.Constant(2), solver="iterative", device="cpu")
+    with pytest.raises(ValueError, match="requires a radial kernel"):
+        JaxGPR(x, y, jax_kernels.Rbf(2) + jax_kernels.Constant(2), solver="iterative")
 
 
 def _spd(n, seed=0):

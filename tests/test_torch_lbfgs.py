@@ -196,8 +196,10 @@ def test_lbfgs_restores_the_model_on_a_nonfinite_loss():
         np.testing.assert_array_equal(after[k], start[k])
 
 
-def _fake_model(device, reads_policy):
-    return types.SimpleNamespace(device=torch.device(device), _reads_jitter_policy=lambda: reads_policy)
+def _fake_model(device, reads_policy, capturable=True):
+    return types.SimpleNamespace(
+        device=torch.device(device), _reads_jitter_policy=lambda: reads_policy, _capturable=lambda: capturable
+    )
 
 
 @pytest.mark.parametrize(
@@ -214,6 +216,15 @@ def _fake_model(device, reads_policy):
 def test_capture_rule(device, method, policy, reads, expected):
     with settings.override(jitter_policy=policy):
         assert fit.captures(_fake_model(device, reads), method) is expected
+
+
+@pytest.mark.parametrize("method", ["Adam", "SGD"])
+def test_capture_rule_sends_a_step_with_its_own_host_read_eagerly(method):
+    with settings.override(jitter_policy="fixed"):
+        assert not fit.captures(_fake_model("cuda", False, capturable=False), method)
+    x, y = _data()
+    assert GPR(x, y, kernels.Rbf(D), device="cpu")._capturable()
+    assert not GPR(x, y, kernels.Rbf(D, ARD=True), solver="iterative", device="cpu")._capturable()
 
 
 def test_gpr_reads_the_jitter_policy_only_off_the_fused_paths():
