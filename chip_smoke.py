@@ -87,8 +87,9 @@
    kinds in float32 and float64 at n = 4096 and 4097 with k = 1, 9 and
    256) and K4 ``lowrank_contractions`` (the same with r = 9 and 17), each
    launched twice and bitwise equal, then timed at n = 100000, d = 8,
-   float32 (K3 with k = 9 and 1, K4 with r = 9).  They run right after
-   the K2 phase.
+   float32 (K3 with k = 9, 1 and 17: mBCG's block at 8 probes, a Lanczos
+   vector, and GPR(solver="iterative")'s default 16 probes; K4 with
+   r = 9).  They run right after the K2 phase.
 14. iterative_training: bench_iterative.py's model at bench.py's
    n = 100000, d = 8 (GPR(solver="iterative"), 8 probes, 128 CG steps,
    rank-64 preconditioner, tolerance 1e-4, float32): one warm and two timed
@@ -204,11 +205,15 @@ IT_CHECK_TOL, IT_CHECK_ITERS = 1e-10, 200
 # K3 and K4 against their plain twins (run in float64 on the same inputs,
 # so the twin's own rounding is not charged to the kernel), relative to the
 # sums of absolute terms of each output (mvm.gram_mvm_plain on |V|;
-# lowrank_contract.lowrank_scales).  float32: a thread sums a tile's 256
-# terms in float32, then tile by tile (K3) or in float64 (K4); for
-# rounding errors that behave as random that is about (√256 + √(n/256))·u
-# of the scale, 2e-6 at n = 4097 (Higham §4.2), and the approximate exp2,
-# log2, rcp and sqrt add about 2^-22 per term: 2e-5 keeps a factor of ten.
+# lowrank_contract.lowrank_scales).  float32: K3 sums a row's terms in one
+# running float32 sum per thread and column range (as a GEMM does), then
+# two warps' and the ranges' sums in order; K4 a tile's 256 terms in
+# float32, then in float64.  For rounding errors that behave as random
+# that is about √m·u of the scale for m terms, 3e-6 for K3 at n = 4097
+# (m ≈ n/2; Higham §4.2); K3's norm identity adds about
+# u·(|x̃ᵢ|² + |x̃ⱼ|²)·|c| to each exponent on centred inputs (1e-6 relative
+# at d = 8), and the approximate exp2, log2, rcp and sqrt about 2^-22 per
+# term: 2e-5 keeps a factor of five.
 # float64: summation (√n·u ≈ 1e-14) and the twin's r² by the norm identity
 # (error up to u·(|x̃ᵢ|² + |x̃ⱼ|²)), which matern12's E = G/r amplifies at
 # the closest pair, as for K2: 1e-10.
@@ -2070,8 +2075,9 @@ def mvm_bound_ms(n, d, k, dtype, itemsize):
     once, and 2d + 5 + 2k operations per pair (2d + 3 for r² by the norm
     identity, as the reference computes it: a d-long dot product, two adds
     and the doubling; 2 for the scale and the exp; k fused multiply-adds),
-    a fused multiply-add counted as two.  The kernel spends 3d on r² by
-    direct differences; that is its cost, not the function's."""
+    a fused multiply-add counted as two.  The kernel issues about d + 5
+    instructions a pair plus k rounded up to 4 (csrc/radial_mvm.cu's
+    note); that is its cost, not the function's."""
     return bound_ms((n * d + 2 * n * k + 3) * itemsize, n * n * (2 * d + 5 + 2 * k), dtype)
 
 
@@ -2108,7 +2114,8 @@ def mvm_phase(torch, mvm):
     """K3 against its twin: five kinds, float32 and float64, n = 4096 and
     4097, k = 1, 9 and 256, each launched twice (bitwise equal); then timed
     at the path's shape (n = 100000, d = 8, float32; k = 9 in mBCG, k = 1 in
-    LOVE) beside the twin and the bound, and its float32 error there."""
+    LOVE, k = 17 in mBCG at the default 16 probes) beside the twin and the
+    bound, and its float32 error there."""
     rows = []
     noise = 0.1 + IT_JITTER
     for dtype in (torch.float32, torch.float64):
@@ -2131,7 +2138,7 @@ def mvm_phase(torch, mvm):
                 rows.append({"case": kind, "dtype": name, "n": n, "errors": errs, "tol": MVM_TOL[name]})
     torch.cuda.empty_cache()
     timed = {}
-    for k in (9, 1):
+    for k in (9, 1, 17):
         xs, V, lv, le = radial_inputs(torch, IT_N, k, torch.float32, seed=100 + k)
         with torch.no_grad():
             got = mvm.gram_mvm("rbf", xs, lv, noise, V)
@@ -2657,6 +2664,8 @@ def main() -> int:
             "dtype": "float32",
             "k1_ms": mvm_rows["timed"][1]["ms"],
             "k1_bound_ms": mvm_rows["timed"][1]["bound_ms"],
+            "k17_ms": mvm_rows["timed"][17]["ms"],
+            "k17_bound_ms": mvm_rows["timed"][17]["bound_ms"],
         },
         {
             "name": "lowrank_contractions",

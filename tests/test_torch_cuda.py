@@ -728,10 +728,26 @@ def _radial_inputs(n, d, cols, dtype, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kind", RADIAL_KINDS)
-@pytest.mark.parametrize("n, d, k", [(1, 8, 1), (255, 3, 9), (257, 8, 1), (300, 17, 16), (513, 32, 40),
-                                     (1000, 8, 256)])
-def test_mvm_kernel_matches_plain(cuda, dtype, kind, n, d, k):
+@pytest.mark.parametrize("n, d, k, layout", [
+    (1, 8, 1, "plain"), (255, 3, 9, "plain"), (257, 8, 1, "plain"), (300, 17, 16, "plain"),
+    (513, 32, 40, "plain"), (1000, 8, 256, "plain"),
+    # one pass's widths (k rounded up to 4 in float32), n under, at and over
+    # a 256-row strip, n under the 128 rows of one warp, d across MAXD
+    (255, 9, 2, "plain"), (256, 1, 4, "plain"), (257, 16, 5, "plain"), (100, 8, 12, "plain"),
+    (511, 9, 13, "plain"), (512, 8, 17, "plain"), (128, 16, 32, "plain"), (129, 1, 33, "plain"),
+    # a common offset: the wrapper's centring keeps the float32 tolerance
+    (1000, 8, 9, "offset"),
+    # non-contiguous xs and V
+    (300, 9, 17, "strided"),
+])
+def test_mvm_kernel_matches_plain(cuda, dtype, kind, n, d, k, layout):
     xs, V, lv, le = _radial_inputs(n, d, k, dtype, seed=n + k)
+    if layout == "offset":
+        xs = xs + 40.0
+    elif layout == "strided":
+        xs = xs.T.contiguous().T
+        V = torch.stack([V, -V], dim=2).reshape(n, 2 * k)[:, ::2]
+        assert not xs.is_contiguous() and not V.is_contiguous()
     before = mvm.gram_mvm.launches
     got = mvm.gram_mvm(kind, xs, lv, 0.101, V, log_extra=le)
     again = mvm.gram_mvm(kind, xs, lv, 0.101, V, log_extra=le)
