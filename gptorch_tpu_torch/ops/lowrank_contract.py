@@ -12,33 +12,44 @@ radial maps G, E (and F for ``rq``) of r² = ‖x̃ᵢ − x̃ⱼ‖²
 :func:`lowrank_contractions` replaces the JAX package's
 ``_lowrank_contractions`` (``gptorch_tpu/ops/iterative.py:454-517``), which
 XLA fuses on the TPU.  On a CUDA tensor it launches
-``csrc/lowrank_contract.cu`` (see the note at its top): one thread per row
-forms Wᵢⱼ from its row of Wl and a shared-memory tile of Wr, recomputes the
-maps, and sums the three outputs over its pairs; the length-scale terms come
-from the same differences r² is summed from, so no column sum is needed.
-Nothing n² is stored, and the sums go per block in float64 in a fixed order,
-without atomics: a gradient is the same from run to run.  It is bound by its
-operations (about 6d + 2r + 6 flops a pair: 10.7 ms at n = 100000, d = 8,
-r = 9 on an H100 in float32).  On a CPU tensor it computes
+``csrc/lowrank_contract.cu`` (see the note at its top).  G, E and F are
+symmetric in (i, j), so the kernel visits each unordered pair once, weighted
+by Sᵢⱼ = Wᵢⱼ + Wⱼᵢ (Wᵢᵢ on the diagonal).  :func:`_lowrank_records` packs
+each point's x̃ (scaled for rbf) and its factor rows, interleaved, into one
+aligned record, so that Sᵢⱼ is one dot product of a row's record (pairs
+swapped) with a column's.  Each thread holds a few rows in registers and
+walks the column tiles at or below its strip's diagonal; the length-scale
+terms come from the same differences r² is summed from.  Nothing n² is
+stored, and the sums go per block in float64 in a fixed order, without
+atomics: a gradient is the same from run to run.  The function needs
+n(n + 1)/2 · (4d + 4r + 11) operations (5.9 ms at n = 100000, d = 8, r = 9
+on an H100 in float32); the kernel is bound by instruction issue, about 57
+a pair there.  On a CPU tensor it computes
 :func:`lowrank_contractions_plain`, the JAX package's slab loop, which is
-also the reference the kernel is tested against.
+also the reference the kernel is tested against;
+:func:`lowrank_contractions_pairs` repeats the kernel's sum over unordered
+pairs in plain torch, for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from . import _build
 from .gpr_fast import _radial_maps
+from .mvm import RBF_EXP2
 
 #: Kinds of the kernel, in the order of its compile-time switch.
 KINDS = ("rbf", "matern12", "matern32", "matern52", "rq")
 #: The widest inputs the kernel takes, and the columns of Wl and Wr one
 #: launch takes (wider factors go in chunks of this many, one launch each).
-MAX_D, MAX_RANK = 32, 32
+MAX_D, MAX_RANK = 32, 16
+#: rbf's records hold s·x̃, s = √(log₂e / 2), so that exp(−r²/2) = 2^(−‖s·Δ‖²).
+RBF_SCALE = math.sqrt(-RBF_EXP2)
 
 
 def _slab_loop(kind, xs, var, Wl, Wr, slab, log_extra, absolute):
@@ -107,6 +118,66 @@ def lowrank_scales(kind, xs, var, Wl, Wr, slab=2048, log_extra=None):
     return svar, ell, sextra
 
 
+def _layout(dtype, d, r):
+    """(MAXD, P, record width) of a launch of r ≤ :data:`MAX_RANK` columns
+    (the kernel's rule, which its plan reports): the inputs padded to 8, 16
+    or 32 and the 2r interleaved factor columns rounded up to 4 in float32
+    (8 in float64)."""
+    maxd = 8 if d <= 8 else (16 if d <= 16 else 32)
+    step = 4 if dtype == torch.float32 else 8
+    p = -(-2 * r // step) * step
+    return maxd, p, maxd + p
+
+
+def _lowrank_records(xs, Wl, Wr, kind, maxd, width):
+    """The kernel's records of one launch, (n, width): row j is [x'ⱼ
+    (zero-padded to ``maxd``) | Wlⱼ₀, Wrⱼ₀, Wlⱼ₁, Wrⱼ₁, … | zeros], with
+    x' = :data:`RBF_SCALE`·x̃ for rbf and x̃ otherwise."""
+    n, d = xs.shape
+    r = Wl.shape[1]
+    rec = xs.new_zeros((n, width))
+    rec[:, :d] = xs * RBF_SCALE if kind == "rbf" else xs
+    rec[:, maxd : maxd + 2 * r] = torch.stack([Wl, Wr], dim=2).reshape(n, 2 * r)
+    return rec
+
+
+def lowrank_contractions_pairs(kind, xs, var, Wl, Wr, log_extra=None, rows=256, tile=128):
+    """The kernel's sum in plain torch, for the tests: for each chunk of
+    :data:`MAX_RANK` columns, the records of :func:`_lowrank_records`; strips
+    of ``rows`` rows against the column tiles of ``tile`` records at or below
+    their diagonal, in order; each unordered pair once, weighted by
+    Sᵢⱼ = [Wrᵢ, Wlᵢ]·[Wlⱼ, Wrⱼ] (pairs interleaved) = Wⱼᵢ + Wᵢⱼ, and the
+    diagonal by Sᵢᵢ / 2 = Wᵢᵢ; rbf's map 2^(−t) on its scaled records and
+    its length-scale sums scaled back."""
+    n, d = xs.shape
+    svar, ell, sextra = xs.new_zeros(()), xs.new_zeros((d,)), xs.new_zeros(())
+    for c0 in range(0, Wl.shape[1], MAX_RANK):
+        wl, wr = Wl[:, c0 : c0 + MAX_RANK], Wr[:, c0 : c0 + MAX_RANK]
+        maxd, _, width = _layout(xs.dtype, d, wl.shape[1])
+        rec = _lowrank_records(xs, wl, wr, kind, maxd, width)
+        x, w = rec[:, :maxd], rec[:, maxd:]
+        a = w.reshape(n, -1, 2).flip(2).reshape(n, -1)  # a row's factors, each pair swapped
+        for lo in range(0, n, rows):
+            for j0 in range(0, min(n, lo + rows), tile):
+                diff = x[lo : lo + rows, None, :] - x[None, j0 : j0 + tile, :]
+                sq = diff * diff
+                r2 = sq.sum(dim=-1)
+                S = a[lo : lo + rows] @ w[j0 : j0 + tile].mT
+                i = torch.arange(lo, min(n, lo + rows), device=xs.device)[:, None]
+                j = torch.arange(j0, min(n, j0 + tile), device=xs.device)[None, :]
+                S = S * torch.where(j < i, 1.0, torch.where(j == i, 0.5, 0.0)).to(S.dtype)
+                if kind == "rbf":
+                    G = E = var * torch.exp2(-r2)
+                    F = None
+                else:
+                    G, E, F = _radial_maps(kind, r2, var, log_extra)
+                svar = svar + torch.sum(S * G)
+                ell = ell + torch.einsum("ij,ijq->q", S * E, sq)[:d]
+                if F is not None:
+                    sextra = sextra + torch.sum(S * F)
+    return svar, ell / RBF_SCALE**2 if kind == "rbf" else ell, sextra
+
+
 def _check(kind, xs, Wl, Wr):
     if kind not in KINDS:
         raise ValueError(f"lowrank_contractions: unknown kind {kind!r}; one of {KINDS}")
@@ -129,13 +200,13 @@ def _kernel_library():
     lib = _build.library("lowrank_contract")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.lowrank_contract_f32, lib.lowrank_contract_f64):
-        fn.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        fn.argtypes = [ptr] * 4 + [i32] * 4 + [ctypes.POINTER(ctypes.c_int64), ptr]
         fn.restype = i32
+    lib.lowrank_contract_plan.argtypes = [i32] * 5 + [ctypes.POINTER(ctypes.c_int64)]
+    lib.lowrank_contract_plan.restype = i32
     for fn in (lib.lowrank_contract_max_d, lib.lowrank_contract_max_rank):
         fn.argtypes = []
         fn.restype = i32
-    lib.lowrank_contract_workspace_bytes.argtypes = [i32]
-    lib.lowrank_contract_workspace_bytes.restype = ctypes.c_int64
     lib.lowrank_contract_error_string.argtypes = [i32]
     lib.lowrank_contract_error_string.restype = ctypes.c_char_p
     if (lib.lowrank_contract_max_d(), lib.lowrank_contract_max_rank()) != (MAX_D, MAX_RANK):
@@ -154,10 +225,10 @@ def lowrank_contractions(kind, xs, var, Wl, Wr, slab=2048, log_extra=None):
     :param slab: the plain twin's row-slab size (the kernel ignores it).
     :param log_extra: (1,) log α for ``rq``; ignored by the other kinds.
 
-    CUDA tensors launch the kernel, once per chunk of :data:`MAX_RANK`
-    columns of the factors (each counted in
-    ``lowrank_contractions.launches``); it takes d ≤ 32 and raises
-    ``ValueError`` beyond.  CPU tensors take
+    CUDA tensors pack the kernel's records (:func:`_lowrank_records`) and
+    launch it, once per chunk of :data:`MAX_RANK` columns of the factors
+    (each counted in ``lowrank_contractions.launches``); it takes d ≤ 32
+    and raises ``ValueError`` beyond.  CPU tensors take
     :func:`lowrank_contractions_plain`.
     """
     _check(kind, xs, Wl, Wr)
@@ -178,18 +249,22 @@ def lowrank_contractions(kind, xs, var, Wl, Wr, slab=2048, log_extra=None):
     else:
         alpha = var.new_ones(())
     scal = torch.stack([var, alpha])
-    xs, Wl, Wr = xs.contiguous(), Wl.contiguous(), Wr.contiguous()
-    work = torch.empty((lib.lowrank_contract_workspace_bytes(n),), dtype=torch.uint8, device=xs.device)
     fn = lib.lowrank_contract_f32 if xs.dtype == torch.float32 else lib.lowrank_contract_f64
+    plan = (ctypes.c_int64 * 6)()  # [MAXD, P, record width, workspace bytes, grid, items a block]
     outs = []
     with torch.cuda.device(xs.device):
         for c0 in range(0, r, MAX_RANK):
-            out = xs.new_empty((d + 2,))
-            code = fn(
-                xs.data_ptr(), Wl[:, c0:].data_ptr(), Wr[:, c0:].data_ptr(), scal.data_ptr(), work.data_ptr(),
-                out.data_ptr(), n, d, r, min(MAX_RANK, r - c0), KINDS.index(kind),
-                torch.cuda.current_stream().cuda_stream,
-            )
+            rc = min(MAX_RANK, r - c0)
+            code = lib.lowrank_contract_plan(xs.element_size(), n, d, rc, KINDS.index(kind), plan)
+            if code == 0:
+                maxd, _, width, work_bytes = plan[:4]
+                rec = _lowrank_records(xs, Wl[:, c0 : c0 + rc], Wr[:, c0 : c0 + rc], kind, maxd, width)
+                work = torch.empty((work_bytes,), dtype=torch.uint8, device=xs.device)
+                out = xs.new_empty((d + 2,))
+                code = fn(
+                    rec.data_ptr(), scal.data_ptr(), work.data_ptr(), out.data_ptr(), n, d, rc, KINDS.index(kind),
+                    plan, torch.cuda.current_stream().cuda_stream,
+                )
             if code != 0:
                 raise RuntimeError(
                     f"lowrank_contractions launch failed: {lib.lowrank_contract_error_string(code).decode()}"

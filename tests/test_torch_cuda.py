@@ -8,6 +8,7 @@ has only PyTorch; there, skip the JAX-configuring tests/conftest.py:
 """
 
 import contextlib
+import ctypes
 import math
 
 import numpy as np
@@ -718,6 +719,15 @@ RADIAL_KINDS = ["rbf", "matern12", "matern32", "matern52", "rq"]
 MVM_TOL = {torch.float32: 2e-5, torch.float64: 1e-10}
 
 
+def _lowrank_tol(dtype, n):
+    """K4's limit (chip_smoke.py's lowrank_tol, with its reasons): MVM_TOL,
+    and in float32 also 1e-4/√m of the scale for its m = n(n + 1)/2 pairs,
+    which a zero or half-wrong output fails where 2e-5 alone would not."""
+    if dtype == torch.float64:
+        return MVM_TOL[dtype]
+    return min(MVM_TOL[dtype], 1e-4 / math.sqrt(n * (n + 1) / 2))
+
+
 def _radial_inputs(n, d, cols, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     xs = torch.randn(n, d, generator=g, device="cuda", dtype=dtype) / 1.1
@@ -768,10 +778,22 @@ def test_mvm_kernel_rejects_wide_inputs(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kind", RADIAL_KINDS)
-@pytest.mark.parametrize("n, d, r", [(1, 8, 1), (255, 3, 9), (257, 8, 17), (300, 17, 33), (1000, 32, 8)])
-def test_lowrank_kernel_matches_plain(cuda, dtype, kind, n, d, r):
+@pytest.mark.parametrize("n, d, r, layout", [
+    (1, 8, 1, "plain"), (255, 3, 9, "plain"), (257, 8, 17, "plain"), (300, 17, 33, "plain"), (1000, 32, 8, "plain"),
+    # across a thread's rows (up to four in float32), a 128-record tile, a
+    # strip of 128, 256 or 512 rows and its diagonal tiles; the factor width
+    # 2r rounded up to 4 (8 in float64) and chunks of 16 columns
+    (127, 8, 4, "plain"), (128, 8, 5, "plain"), (129, 8, 12, "plain"), (4097, 8, 16, "plain"),
+    (129, 5, 32, "plain"), (128, 16, 9, "symmetric"), (300, 8, 12, "strided"), (4097, 8, 9, "symmetric"),
+])
+def test_lowrank_kernel_matches_plain(cuda, dtype, kind, n, d, r, layout):
     xs, W, lv, le = _radial_inputs(n, d, 2 * r, dtype, seed=n + r)
     Wl, Wr = W[:, :r].contiguous(), W[:, r:].contiguous()
+    if layout == "symmetric":
+        Wr = Wl
+    elif layout == "strided":
+        Wl, Wr = W[:, ::2], W[:, 1::2]
+        assert not Wl.is_contiguous() and not Wr.is_contiguous()
     var = torch.exp(lv)
     before = lowrank_contract.lowrank_contractions.launches
     got = lowrank_contract.lowrank_contractions(kind, xs, var, Wl, Wr, log_extra=le)
@@ -791,7 +813,39 @@ def test_lowrank_kernel_matches_plain(cuda, dtype, kind, n, d, r):
     WE = (Wl.double().abs() @ Wr.double().abs().T) * E.abs()
     identity = 4 * 2.0**-52 * (WE.sum(dim=1) @ x64**2 + WE.sum(dim=0) @ x64**2)
     for a, b, s, floor in zip(got, want, scales, (0.0, identity, 0.0)):
-        assert bool(torch.all((a.double() - b).abs() <= MVM_TOL[dtype] * s + floor))
+        assert bool(torch.all((a.double() - b).abs() <= _lowrank_tol(dtype, n) * s + floor))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d, r", [(1, 1), (8, 9), (9, 16), (32, 2)])
+def test_lowrank_plan_matches_layout(cuda, dtype, d, r):
+    """The kernel's record layout is the one the CPU tests hold
+    (lowrank_contract._layout), and its workspace holds a block's sums."""
+    lib = lowrank_contract._kernel_library()
+    plan = (ctypes.c_int64 * 6)()
+    assert lib.lowrank_contract_plan(torch.empty((), dtype=dtype).element_size(), 100000, d, r, 0, plan) == 0
+    assert tuple(plan)[:3] == lowrank_contract._layout(dtype, d, r)
+    assert plan[3] > 0 and plan[3] == plan[4] * 34 * 8 and plan[5] >= 1
+
+
+def test_lowrank_launch_rejects_another_plan(cuda):
+    """The entry point launches only with the plan of its own arguments."""
+    lib = lowrank_contract._kernel_library()
+    n, d, r = 1000, 8, 9
+    plan = (ctypes.c_int64 * 6)()
+    assert lib.lowrank_contract_plan(4, n, d, r, 0, plan) == 0
+    rec = torch.zeros((n, plan[2]), device="cuda")
+    scal, out = torch.ones(2, device="cuda"), torch.empty(d + 2, device="cuda")
+    work = torch.empty((plan[3],), dtype=torch.uint8, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (rec.data_ptr(), scal.data_ptr(), work.data_ptr(), out.data_ptr())
+    assert lib.lowrank_contract_f32(*args, n, d, r, 0, plan, stream) == 0
+    for i, value in ((1, plan[1] + 4), (4, plan[4] + 1), (5, 0)):
+        bad = (ctypes.c_int64 * 6)(*plan)
+        bad[i] = value
+        assert lib.lowrank_contract_f32(*args, n, d, r, 0, bad, stream) != 0
+    assert lib.lowrank_contract_f32(*args, 4 * n, d, r, 0, plan, stream) != 0
+    torch.cuda.synchronize()
 
 
 def test_radial_mvm_gradient_on_the_card(cuda):
