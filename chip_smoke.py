@@ -111,6 +111,26 @@ parent.
    card against the CPU: loss, gradient, α, LOVE variances, diagnostics,
    the CPU's side computed by a background process of this script
    (``--iterative-cpu-reference PATH``) while the card runs 14 and 15.
+16. psi_statistics: bench_ekernels.py's cell (n = 1000, m = 50, q = 10,
+   Rbf-ARD, float32): ψ₀ + Σψ₁ + Σψ₂ and its value-and-grad (the kernel's
+   hyperparameters and Xmean), float32 against float64 on the card, and ψ₂
+   per datum at the sparse width (256 queries, m = 1024, q = 9).
+17. gplvm: the Bayesian GPLVM at the oil-flow data's shape (n = 1000,
+   p = 12, q = 10, m = 50, synthetic Y from a seed, float32): fit_scan
+   Adam (captured), posterior(), predict_f at the latents,
+   predict_uncertain over 256, project of 16 new rows, impute; then in
+   float64 at a small shape the card against the CPU for the iid,
+   dynamical and reparameterized priors, large p and the Linear ψ-kernel.
+18. uncertain_prediction: predict_uncertain of VFE and SVGP at the sparse
+   cell (256 queries) and of GPR at n = 4096, d = 8 (16 queries), all with
+   ekernels.Rbf(ARD); each finite, and in float64 on the card equal to
+   predict_f at zero input variance.
+19. vecchia: bench_vecchia.py's cell (n = 200000, d = 3, m = 32, chunk
+   8192, float32): the host build, a value-and-grad and its stages,
+   float32 against float64 NLML, fit_scan Adam (captured), predict_f of 8
+   batches of 256, peak memory; full history against the dense GPR at
+   n = 512 and the card against the CPU at n = 4096, in float64.
+   Phases 16-19 print the seconds they took together.
 
 On the card, fit_scan captures a first-order run as a CUDA graph; the
 training, general-training, SVGP and DKL phases check that it did.  Before
@@ -242,6 +262,43 @@ MVM_TOL = {"float32": 2e-5, "float64": 1e-10}
 # fails a zero output, a missed factor of two in Sᵢⱼ or one 128 × 128 tile
 # left out at n = 100000.
 LOWRANK_F32_RANDOM = 1e-4
+# The ψ-statistics at bench_ekernels.py's cell (the reference's
+# one published timing: n = 1000, m = 50, q = 10) and ψ₂ per datum at the
+# sparse width (EK_QUERIES queries against m = 1024, q = 9).  float32 against
+# float64, relative to each statistic's largest entry: an H100 reads 1.2e-7
+# (ψ₁) and 1.9e-7 (ψ₂) on these seeded inputs; the limit keeps a factor of
+# 20 over the worse.  Its control: ψ₂ with TF32 products allowed (the
+# port pins them off) must fail it.
+EK_N, EK_M, EK_Q, EK_QUERIES = 1000, 50, 10, 256
+PSI_F32_TOL = 4e-6
+# The Bayesian GPLVM at the oil-flow data's shape (Titsias & Lawrence 2010:
+# 1000 × 12, Q = 10, M = 50) on synthetic data from a seed: fit_scan Adam
+# (a warm and a timed call of GP_STEPS), project and impute of
+# GP_PROJECT_ROWS rows by GP_PROJECT_ITERS Adam steps; the float64
+# card-vs-CPU check at (n, p, q, m) = GP_CHECK.
+GP_N, GP_P, GP_Q, GP_M, GP_STEPS, GP_LR = 1000, 12, 10, 50, 20, 1e-2
+GP_PROJECT_ROWS, GP_PROJECT_ITERS, GP_CHECK = 16, 200, (40, 6, 3, 8)
+# Uncertain-input prediction: the sparse cell's VFE and SVGP over Q queries,
+# and GPR at n = 4096, d = 8 over 16 (its ψ₂ with Z = X is (n*, n, n)).
+# VFE's and SVGP's moments at non-zero input variance for the first
+# UP_CPU_QUERIES queries are held against float64 on the CPU: the card's
+# float64 to F64_REL_TOL, its float32 to UP_F32_TOL of each output's
+# largest entry (an H100 reads 3.5e-6 for VFE and 1.8e-6 for SVGP; the
+# limit keeps a factor of 20 over the worse).  Its control: the float32
+# moments with TF32 products allowed must fail it.
+UP_GPR_N, UP_GPR_QUERIES, UP_CPU_QUERIES = 4096, 16, 16
+UP_F32_TOL = 7e-5
+# The Vecchia GP at bench_vecchia.py's cell: n = 200000, d = 3, m = 32,
+# chunk 8192; fit_scan Adam VE_STEPS a call; full history against the dense
+# GPR at VE_DENSE_N, the card against the CPU at VE_CHECK_N, both float64.
+VE_N, VE_D, VE_M, VE_CHUNK, VE_STEPS, VE_DENSE_N, VE_CHECK_N = 200000, 3, 32, 8192, 3, 512, 4096
+# float32 against float64 Vecchia NLML at VE_N, relative: an H100 reads
+# 5.7e-7 on the seeded data; the limit keeps a factor of about 18.  Its
+# control: the float32 NLML with the neighbour Grams rounded to float16
+# (TF32's 10-bit mantissa) must fail it.  The NLML with TF32 products
+# allowed is printed beside it (the d = 3 products of the neighbour Grams
+# did not take TF32 on an H100: the reading equalled the pinned one).
+VE_F32_TOL = 1e-5
 
 
 def lowrank_tol(name, n):
@@ -338,25 +395,98 @@ def dtype_name(dtype):
     return str(dtype).replace("torch.", "")
 
 
+# K1's cases against its twin, (label, n1, n2, symmetric, d, noise on the
+# diagonal), each in float32 and float64: the exact-GP shapes; the sparse
+# paths' at d = 9 (Kuu symmetric with no added diagonal, Kuf of one batch,
+# Kus of one query batch, a ragged pair); then every shape that the
+# GPLVM and uncertain-prediction paths launch (checked by
+# check_gram_coverage): the GPLVM's Kuu, K(Z, latents) and K(Z, queries)
+# at q = 10; VFE's Kuf over all n; SVGP's start of q(u) from an exact GP
+# on 100 points; GPR's K(X, X) and K(X, queries) at n = 4096.
+GRAM_CASES = [
+    ("sym+diag", N, N, True, D, True),
+    ("cross", N, Q, False, D, False),
+    ("cross", Q, N, False, D, False),
+    ("ragged", 4099, 1031, False, D, False),
+    ("Kuu sym", SP_M, SP_M, True, SP_D, False),
+    ("Kuf", SP_M, SP_BATCH, False, SP_D, False),
+    ("Kus", SP_M, Q, False, SP_D, False),
+    ("ragged", 1000, 4000, False, SP_D, False),
+    ("lvm Kuu", GP_M, GP_M, True, GP_Q, False),
+    ("lvm Kuf", GP_M, GP_N, False, GP_Q, False),
+    ("lvm Kus", GP_M, Q, False, GP_Q, False),
+    ("Kuf all", SP_M, SP_N, False, SP_D, False),
+    ("q(u) K", 100, 100, True, SP_D, True),
+    ("q(u) Kz", 100, SP_M, False, SP_D, False),
+    ("gpr K", UP_GPR_N, UP_GPR_N, True, D, False),
+    ("gpr Ks", UP_GPR_N, UP_GPR_QUERIES, False, D, False),
+]
+
+
+@contextlib.contextmanager
+def tf32_allowed(torch):
+    """Float32 matrix products on TF32 tensor cores inside the block, which
+    the port pins off: the control run that a float32 limit must fail."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@contextlib.contextmanager
+def f16_neighbour_grams():
+    """The Vecchia neighbour Grams rounded to float16 (the 10-bit mantissa
+    of TF32) inside the block: the control run that the float32 NLML's
+    limit must fail."""
+    from gptorch_tpu_torch.ops import vecchia as vops
+
+    batched_gram = vops.batched_gram
+    vops.batched_gram = lambda kernel, a, b=None: batched_gram(kernel, a, b).half().to(a.dtype)
+    try:
+        yield
+    finally:
+        vops.batched_gram = batched_gram
+
+
+@contextlib.contextmanager
+def gram_launch_shapes():
+    """Records (n1, n2, symmetric, d, dtype) of every K1 launch made inside
+    the block into the set it yields."""
+    from gptorch_tpu_torch.ops import gram
+
+    shapes, launch = set(), gram._launch
+
+    def recorded(x1, x2, var, diag):
+        shapes.add((x1.shape[0], x1.shape[0] if x2 is None else x2.shape[0], x2 is None, x1.shape[1],
+                    dtype_name(x1.dtype)))
+        return launch(x1, x2, var, diag)
+
+    gram._launch = recorded
+    try:
+        yield shapes
+    finally:
+        gram._launch = launch
+
+
+def check_gram_coverage(shapes):
+    """Fails unless each K1 shape of ``shapes`` (see gram_launch_shapes) is
+    one of GRAM_CASES, which gram_phase holds against the twin in both
+    dtypes."""
+    covered = {(n1, n2, sym, d) for _, n1, n2, sym, d, _ in GRAM_CASES}
+    missing = sorted(s for s in shapes if s[:4] not in covered)
+    print(f"# rbf_gram shapes launched on the new paths: {sorted(shapes)}; not among gram_phase's cases: "
+          f"{missing}", flush=True)
+    check(not missing, f"rbf_gram shapes not held against the twin: {missing}")
+
+
 def gram_phase(torch, gram):
-    # (label, n1, n2, symmetric, d, noise on the diagonal): the exact-GP
-    # shapes, then the sparse paths' at d = 9 (Kuu symmetric with no added
-    # diagonal, Kuf of one batch, Kus of one query batch, a ragged pair)
-    cases = [
-        ("sym+diag", N, N, True, D, True),
-        ("cross", N, Q, False, D, False),
-        ("cross", Q, N, False, D, False),
-        ("ragged", 4099, 1031, False, D, False),
-        ("Kuu sym", SP_M, SP_M, True, SP_D, False),
-        ("Kuf", SP_M, SP_BATCH, False, SP_D, False),
-        ("Kus", SP_M, Q, False, SP_D, False),
-        ("ragged", 1000, 4000, False, SP_D, False),
-    ]
     rows = []
     for dtype in (torch.float32, torch.float64):
         name = dtype_name(dtype)
         gen = torch.Generator(device="cuda").manual_seed(1234)
-        for label, n1, n2, sym, d, noise in cases:
+        for label, n1, n2, sym, d, noise in GRAM_CASES:
             ell = torch.rand(d, generator=gen, device="cuda", dtype=dtype) + 0.5
             x1 = (torch.randn(n1, d, generator=gen, device="cuda", dtype=dtype) / ell).contiguous()
             x2 = None if sym else (torch.randn(n2, d, generator=gen, device="cuda", dtype=dtype) / ell).contiguous()
@@ -2310,8 +2440,9 @@ def iterative_model(n, dtype, device=None, precond_rank=IT_RANK, cg_tol=IT_TOL, 
 
 
 def iterative_value_and_grad(torch, model):
-    """One loss and backward; returns (loss, the gradient as one float64
-    vector in sorted trainable order)."""
+    """One loss and backward of any model (the matrix-free GPR's, the
+    Vecchia GP's, ...); returns (loss, the gradient as one float64 vector
+    in sorted trainable order)."""
     from gptorch_tpu_torch.module import get_trainable
 
     model.zero_grad(set_to_none=True)
@@ -2629,6 +2760,585 @@ def iterative_card_vs_cpu(torch, reference):
             "cpu_wait_s": waited}
 
 
+# ---------------------------------------------------------------------------
+# ψ-statistics, the Bayesian GPLVM, uncertain-input prediction and the
+# Vecchia GP.
+
+
+def psi_inputs(torch, n, m, q, dtype, seed=0):
+    """bench_ekernels.py's inputs: Z (m, q), Xmean (n, q) ~ N(0, 1) and
+    diagonal Xcov = 0.1 + 0.05·U(0, 1), from one RandomState, on the card."""
+    rng = np.random.RandomState(seed)
+    arrays = (rng.randn(m, q), rng.randn(n, q), 0.1 + 0.05 * rng.rand(n, q))
+    return tuple(torch.as_tensor(a, dtype=dtype, device="cuda") for a in arrays)
+
+
+def psi_ops(n, m, q):
+    """Operations of ψ₀ + Σψ₁ + Σψ₂ as the code forms them: per (i, k) of
+    ψ₁ a difference, a square, a division and an add per dimension, the
+    exp and the variance (4q + 2); per (i, k, l) of ψ₂ the Gram's q
+    multiply-adds (2q), the exponent's nine adds and scales, the exp, σ⁴
+    and the sum over data (2q + 12)."""
+    return n * m * (4 * q + 2) + n * m * m * (2 * q + 12)
+
+
+def psi_statistics_phase(torch):
+    """The ψ-statistics at bench_ekernels.py's cell (n = 1000, m = 50,
+    q = 10, float32, Rbf-ARD): ψ₀ + Σψ₁ + Σψ₂ and its value-and-grad with
+    respect to the kernel's hyperparameters and Xmean (warm CUDA events),
+    each against its operation bound; float32 against float64 on the card;
+    then ψ₂ per datum (``sum=False``) at the sparse width (n* = 256,
+    m = 1024, q = 9), whose (n*, m, m) output bounds it by bytes."""
+    from gptorch_tpu_torch import ekernels
+
+    out = {"n": EK_N, "m": EK_M, "q": EK_Q, "dtype": "float32"}
+    kern = ekernels.Rbf(EK_Q, ARD=True).to("cuda")
+    Z, Xmean, Xcov = psi_inputs(torch, EK_N, EK_M, EK_Q, torch.float32)
+    xm = Xmean.clone().requires_grad_(True)
+
+    def psi_all(k, Z, Xmean, Xcov):
+        return (torch.sum(k.eKxx(Xmean)) + torch.sum(k.eKxz(Z, Xmean, Xcov))
+                + torch.sum(k.eKzxKxz(Z, Xmean, Xcov, sum=True)))
+
+    def value_and_grad():
+        kern.zero_grad(set_to_none=True)
+        xm.grad = None
+        psi_all(kern, Z, xm, Xcov).backward()
+
+    zero_counts()
+    with gram_launch_shapes() as shapes:
+        with torch.no_grad():
+            out["forward_ms"] = time_ms(lambda: psi_all(kern, Z, Xmean, Xcov), 20)
+        out["value_and_grad_ms"] = time_ms(value_and_grad, 20)
+    out["launches"] = read_counts()
+    out["rbf_gram_shapes"] = shapes
+    ops = psi_ops(EK_N, EK_M, EK_Q)
+    in_bytes = (EK_M * EK_Q + 2 * EK_N * EK_Q + 2 * EK_Q + 1) * 4
+    out["forward_bound_ms"], out["forward_bound_by"] = bound_ms(in_bytes + 4, ops, "float32")
+    # the backward of each elementwise map and product costs about twice its forward
+    out["value_and_grad_bound_ms"], _ = bound_ms(2 * in_bytes, 3 * ops, "float32")
+
+    # float32 against float64 on the same inputs, each statistic by its largest entry
+    k64 = ekernels.Rbf(EK_Q, ARD=True).to("cuda").double()
+    Z64, X64, C64 = (a.double() for a in (Z, Xmean, Xcov))
+    with torch.no_grad():
+        pairs = {"psi0": (kern.eKxx(Xmean), k64.eKxx(X64)),
+                 "psi1": (kern.eKxz(Z, Xmean, Xcov), k64.eKxz(Z64, X64, C64)),
+                 "psi2": (kern.eKzxKxz(Z, Xmean, Xcov), k64.eKzxKxz(Z64, X64, C64))}
+    out["f32_vs_f64"] = {k: float((a.double() - b).abs().max() / b.abs().max()) for k, (a, b) in pairs.items()}
+    # the limit's control: ψ₂'s products (its Gram of scaled inducing inputs) in TF32
+    with torch.no_grad(), tf32_allowed(torch):
+        psi2_tf32 = kern.eKzxKxz(Z, Xmean, Xcov)
+    want = pairs["psi2"][1]
+    out["psi2_tf32_control"] = float((psi2_tf32.double() - want).abs().max() / want.abs().max())
+
+    # ψ₂ per datum at the sparse width: n* queries against the sparse cell's inducing inputs
+    _, _, z = sparse_data(SP_N, SP_D, SP_M, np.float32)
+    kern9 = ekernels.Rbf(SP_D, ARD=True).to("cuda")
+    rng = np.random.RandomState(1)
+    zq = torch.as_tensor(z, device="cuda")
+    xq = torch.as_tensor(rng.randn(EK_QUERIES, SP_D), dtype=torch.float32, device="cuda")
+    xv = torch.as_tensor(0.1 + 0.05 * rng.rand(EK_QUERIES, SP_D), dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out["psi2_each_ms"] = time_ms(lambda: kern9.eKzxKxz(zq, xq, xv, sum=False), 3)
+        each = kern9.eKzxKxz(zq, xq, xv, sum=False)
+        check(tuple(each.shape) == (EK_QUERIES, SP_M, SP_M) and bool(torch.isfinite(each).all()),
+              "psi2 per datum: wrong shape or non-finite")
+    out["psi2_each_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del each
+    torch.cuda.empty_cache()
+    each_bytes = (EK_QUERIES * SP_M * SP_M + SP_M * SP_D + 2 * EK_QUERIES * SP_D) * 4
+    out["psi2_each_bound_ms"], out["psi2_each_bound_by"] = bound_ms(
+        each_bytes, EK_QUERIES * SP_M * SP_M * (2 * SP_D + 11), "float32")
+    print(f"# psi statistics rbf-ARD n={EK_N} m={EK_M} q={EK_Q} f32: psi0 + sum psi1 + sum psi2 "
+          f"{out['forward_ms']:.4f} ms (bound {out['forward_bound_ms']:.5f} ms, {out['forward_bound_by']}), "
+          f"value-and-grad (hyperparameters, Xmean) {out['value_and_grad_ms']:.4f} ms (bound "
+          f"{out['value_and_grad_bound_ms']:.5f} ms, operations); f32 vs f64 max relative "
+          + ", ".join(f"{k} {v:.3e}" for k, v in out["f32_vs_f64"].items()) + f" (tol {PSI_F32_TOL}; control: "
+          f"psi2 with TF32 products {out['psi2_tf32_control']:.3e}, must exceed it); launches "
+          f"{out['launches']}", flush=True)
+    print(f"# psi2 per datum (sum=False) n*={EK_QUERIES} m={SP_M} q={SP_D} f32: {out['psi2_each_ms']:.3f} ms "
+          f"(bound {out['psi2_each_bound_ms']:.3f} ms, {out['psi2_each_bound_by']}: the (n*, m, m) output), peak "
+          f"{out['psi2_each_peak_gb']:.2f} GB", flush=True)
+    for key, value in out["f32_vs_f64"].items():
+        check(value <= PSI_F32_TOL, f"psi statistics f32 vs f64 {key}: {value} > {PSI_F32_TOL}")
+    check(out["psi2_tf32_control"] > PSI_F32_TOL,
+          f"the psi limit {PSI_F32_TOL} passes psi2 with TF32 products ({out['psi2_tf32_control']})")
+    return out
+
+
+def gplvm_data(n, p, dtype, seed=0):
+    """Synthetic data of the oil-flow set's shape: a 2-D latent curve
+    lifted by tanh of a random map into p outputs plus 0.1 noise."""
+    rng = np.random.RandomState(seed)
+    t = rng.randn(n, 2)
+    return (np.tanh(t @ rng.randn(2, p)) + 0.1 * rng.randn(n, p)).astype(dtype)
+
+
+def gplvm_phase(torch):
+    """The Bayesian GPLVM at the oil-flow data's shape (n = 1000, p = 12,
+    q = 10, m = 50, float32, synthetic Y from a seed) under the fixed jitter
+    policy: fit_scan Adam (a warm and a timed call, captured), then
+    posterior(), predict_f at the latents, predict_uncertain over 256 of
+    them, project of 16 new rows and impute of 16 rows with half their
+    outputs observed.  Then the float64 card-against-CPU check."""
+    from gptorch_tpu_torch import settings
+    from gptorch_tpu_torch.models import GPLVM
+
+    y = gplvm_data(GP_N, GP_P, np.float32)
+    y_new = gplvm_data(GP_PROJECT_ROWS, GP_P, np.float32, seed=1)
+    observed = np.arange(GP_P // 2)
+    out = {"n": GP_N, "p": GP_P, "q": GP_Q, "m": GP_M, "dtype": "float32", "steps": GP_STEPS, "lr": GP_LR}
+    with settings.override(jitter_policy="fixed"), gram_launch_shapes() as shapes:
+        t0 = time.perf_counter()
+        model = GPLVM(y, GP_Q, num_inducing_points=GP_M)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        check(model.device.type == "cuda", "GPLVM did not land on the card")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        warm = model.fit_scan("Adam", max_iter=GP_STEPS, learning_rate=GP_LR)
+        torch.cuda.synchronize()
+        out["warm_call_s"] = time.perf_counter() - t0
+        out["launches_per_captured_step"] = check_captured("gplvm training")
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+        zero_counts()
+        t0 = time.perf_counter()
+        losses = model.fit_scan("Adam", max_iter=GP_STEPS, learning_rate=GP_LR)
+        torch.cuda.synchronize()
+        out["step_ms"] = 1e3 * (time.perf_counter() - t0) / GP_STEPS
+        replayed = replayed_launches()
+        out["losses"] = [float(v) for v in torch.cat([warm, losses]).cpu()]
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            return result, 1e3 * (time.perf_counter() - t0)
+
+        post, out["posterior_ms"] = timed(model.posterior)
+        latents = model.Xmean.value.detach().cpu().numpy()
+        latent_var = model.Xvar.value.detach().cpu().numpy()
+        (mu_f, var_f), out["predict_f_ms"] = timed(lambda: model.predict_f(latents))
+        (mu_u, var_u), out["predict_uncertain_ms"] = timed(
+            lambda: model.predict_uncertain(latents[:Q], latent_var[:Q]))
+        (x_mean, x_var), out["project_ms"] = timed(
+            lambda: model.project(y_new, max_iter=GP_PROJECT_ITERS))
+        (imp_mu, imp_var), out["impute_ms"] = timed(
+            lambda: model.impute(y_new[:, observed], observed, max_iter=GP_PROJECT_ITERS))
+        post_mu, _ = post.predict_f(latents[:Q])
+        out["launches"] = add_counts(read_counts(), replayed)
+    out["rbf_gram_shapes"] = shapes
+    print(f"# gplvm n={GP_N} p={GP_P} q={GP_Q} m={GP_M} f32 fit_scan Adam lr={GP_LR} (captured, launches recorded "
+          f"per captured step {out['launches_per_captured_step']}): build {out['build_s']:.3f} s, warm call of "
+          f"{GP_STEPS} steps {out['warm_call_s']:.3f} s, timed {out['step_ms']:.4f} ms/step; posterior "
+          f"{out['posterior_ms']:.3f} ms, predict_f at {GP_N} latents {out['predict_f_ms']:.3f} ms, predict_uncertain "
+          f"of {Q} {out['predict_uncertain_ms']:.3f} ms, project of {GP_PROJECT_ROWS} rows ({GP_PROJECT_ITERS} Adam "
+          f"steps, eager) {out['project_ms']:.1f} ms, impute {out['impute_ms']:.1f} ms; launches {out['launches']}; "
+          f"peak {out['peak_mem_gb']:.3f} GB; bound (-loss) {-out['losses'][0]:.3f} -> {-out['losses'][-1]:.3f}",
+          flush=True)
+    check(all(math.isfinite(v) for v in out["losses"]), "non-finite GPLVM loss")
+    check(out["losses"][-1] < out["losses"][0], "the GPLVM bound did not rise")
+    check(out["launches"]["rbf_gram"] > 0, "the GPLVM path never launched rbf_gram")
+    for name, a, shape in (("predict_f mean", mu_f, (GP_N, GP_P)), ("predict_f var", var_f, (GP_N, GP_P)),
+                           ("predict_uncertain mean", mu_u, (Q, GP_P)), ("predict_uncertain var", var_u, (Q, GP_P)),
+                           ("project mean", x_mean, (GP_PROJECT_ROWS, GP_Q)),
+                           ("project var", x_var, (GP_PROJECT_ROWS, GP_Q)),
+                           ("impute mean", imp_mu, (GP_PROJECT_ROWS, GP_P)),
+                           ("impute var", imp_var, (GP_PROJECT_ROWS, GP_P))):
+        check(a.shape == shape and np.isfinite(a).all(), f"GPLVM {name}: shape {a.shape} or non-finite")
+    check((x_var > 0).all() and (var_u > 0).all(), "GPLVM: non-positive variances")
+    # the cached posterior at the latents is the model's own predict_f
+    gap = float(np.abs(post_mu - mu_f[:Q]).max())
+    check(gap <= 1e-4 * max(1.0, float(np.abs(mu_f).max())), f"GPLVM posterior vs predict_f: {gap}")
+    out["card_vs_cpu"] = gplvm_card_vs_cpu(torch)
+    return out
+
+
+def gplvm_check_run(torch, name, device):
+    """One route of gplvm_card_vs_cpu: the loss and gradient of one
+    configuration at GP_CHECK's shape, and its predict_uncertain with
+    diagonal and full input covariances (numpy values)."""
+    from gptorch_tpu_torch import ekernels, kernels
+    from gptorch_tpu_torch.models import GPLVM
+    from gptorch_tpu_torch.module import get_trainable
+
+    n, p, q, m = GP_CHECK
+    dynamical = dict(times=np.arange(n, dtype=float), time_kernel=kernels.Rbf(1, length_scales=3.0))
+    kw = {"iid": {}, "dynamical": dynamical, "reparam": dict(dynamical, reparam=True), "large_p": {"large_p": True},
+          "linear": {"kernel": ekernels.Linear(q, variance=np.array([0.8, 1.3, 0.6]))}}[name]
+    model = GPLVM(gplvm_data(n, p, np.float64, seed=2), q, num_inducing_points=m, device=device, **kw)
+    loss = model._loss()
+    loss.backward()
+    raws = get_trainable(model)
+    rng = np.random.RandomState(3)
+    xq, xv, a = rng.randn(5, q), 0.2 * np.exp(rng.randn(5, q)), 0.3 * rng.randn(5, q, q)
+    xs = a @ a.transpose(0, 2, 1) + 0.05 * np.eye(q)
+    return {"loss": np.array([float(loss.detach())]),
+            "grad": np.concatenate([raws[k].grad.cpu().numpy().ravel() for k in sorted(raws)]),
+            **{f"u_{c}_{i}": v for c, cov in (("diag", xv), ("full", xs))
+               for i, v in enumerate(model.predict_uncertain(xq, cov))}}
+
+
+def gplvm_card_vs_cpu(torch):
+    """Float64, a small shape (GP_CHECK): the GPLVM's loss, gradient and
+    predict_uncertain (diagonal and full input covariances) on the card
+    against the CPU for the iid, dynamical and reparameterized priors, the
+    large-p form and the Linear ψ-kernel, each to F64_REL_TOL relative
+    (gradients relative to their largest entry)."""
+    from gptorch_tpu_torch import settings
+
+    worst = {}
+    with default_dtype(torch, torch.float64), settings.override(jitter_policy="fixed"):
+        for name in ("iid", "dynamical", "reparam", "large_p", "linear"):
+            zero_counts()
+            card = gplvm_check_run(torch, name, "cuda")
+            launched = read_counts()["rbf_gram"]
+            cpu = gplvm_check_run(torch, name, "cpu")
+            rel = max(float(np.abs(card[k] - cpu[k]).max() / max(np.abs(cpu[k]).max(), 1e-300)) for k in cpu)
+            worst[name] = rel
+            check(name == "linear" or launched > 0, f"gplvm {name}: the card route never launched rbf_gram")
+    print(f"# gplvm f64 card vs CPU (n, p, q, m) = {GP_CHECK}: max relative gap over loss, gradient and "
+          f"predict_uncertain (diagonal and full covariances) " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (tol {F64_REL_TOL})", flush=True)
+    for name, rel in worst.items():
+        check(rel <= F64_REL_TOL, f"gplvm card vs CPU {name}: {rel} > {F64_REL_TOL}")
+    return worst
+
+
+def uncertain_models(torch, dtype, names=("vfe", "svgp", "gpr"), device=None):
+    """VFE and SVGP at bench_svgp.py's data (n = 45730, d = 9, m = 1024) and
+    GPR at n = 4096, d = 8, each with ekernels.Rbf(ARD), under the caller's
+    jitter policy, with their queries: {name: (model, x_mean, x_var)} for
+    ``names``, on ``device`` (the card by default)."""
+    from gptorch_tpu_torch import ekernels, likelihoods
+    from gptorch_tpu_torch.models import GPR, SVGP, VFE
+
+    x, y, z = sparse_data(SP_N, SP_D, SP_M, dtype)
+    gx, gy, _ = make_data(UP_GPR_N, D, dtype)
+    rng = np.random.RandomState(5)
+    xq, xv = rng.randn(Q, SP_D).astype(dtype), (0.01 + 0.04 * rng.rand(Q, SP_D)).astype(dtype)
+    gq, gv = rng.randn(UP_GPR_QUERIES, D).astype(dtype), (0.01 + 0.04 * rng.rand(UP_GPR_QUERIES, D)).astype(dtype)
+    make = {
+        "vfe": lambda: (VFE(x, y, ekernels.Rbf(SP_D, ARD=True), inducing_points=z, jitter=SP_JITTER,
+                            device=device), xq, xv),
+        "svgp": lambda: (SVGP(x, y, ekernels.Rbf(SP_D, ARD=True), inducing_points=z, jitter=SP_JITTER,
+                              device=device), xq, xv),
+        "gpr": lambda: (GPR(gx, gy, ekernels.Rbf(D, ARD=True), likelihood=likelihoods.Gaussian(0.1), device=device),
+                        gq, gv),
+    }
+    return {name: make[name]() for name in names}
+
+
+def uncertain_bound_ms(name, dtype):
+    """Operations of one predict_uncertain call, as the least work: its
+    ψ₂ over the queries (2q + 12 a (query, k, l), as in psi_ops) and the two
+    contractions against G and w (4 a (query, k, l) at p = 1), and the
+    conditional's statistics: VFE's Kuf·Kufᵀ (2nm²), SVGP's (m, m) solves
+    (about 2m³), GPR's K⁻¹ from a Cholesky factor (n³)."""
+    n_star, m, q = (Q, SP_M, SP_D) if name != "gpr" else (UP_GPR_QUERIES, UP_GPR_N, D)
+    extra = {"vfe": 2 * SP_N * SP_M * SP_M, "svgp": 2 * SP_M ** 3, "gpr": UP_GPR_N ** 3}[name]
+    return bound_ms(0, n_star * m * m * (2 * q + 16) + extra, dtype)
+
+
+def uncertain_prediction_phase(torch):
+    """predict_uncertain of VFE and SVGP over 256 queries and of GPR over 16
+    (see uncertain_models), float32, fixed jitter policy: the first call and
+    the warm CUDA-event time, each finite.  Then the same models in float64
+    on the card: at zero input variance each equals its predict_f.  Last,
+    VFE's and SVGP's moments at the queries' non-zero input variances for
+    the first UP_CPU_QUERIES queries, float32 and float64 on the card,
+    against the same models in float64 on the CPU."""
+    from gptorch_tpu_torch import settings
+
+    out, moments, sub = {}, {}, slice(0, UP_CPU_QUERIES)
+    with settings.override(jitter_policy="fixed"):
+        with gram_launch_shapes() as shapes:
+            models = uncertain_models(torch, np.float32)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            for name, (model, xq, xv) in models.items():
+                t0 = time.perf_counter()
+                mu, var = model.predict_uncertain(xq, xv)
+                first = 1e3 * (time.perf_counter() - t0)
+                check(mu.shape == (xq.shape[0], 1) and var.shape == mu.shape,
+                      f"{name} predict_uncertain: wrong shape")
+                check(np.isfinite(mu).all() and np.isfinite(var).all(), f"{name} predict_uncertain: non-finite")
+                out[name] = {"first_ms": first, "queries": xq.shape[0]}
+                moments[name, "f32"] = (mu[sub], var[sub])
+            out["launches"] = read_counts()
+            out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            for name, (model, xq, xv) in models.items():
+                out[name]["ms"] = time_ms(lambda: model.predict_uncertain(xq, xv), 3)
+                out[name]["bound_ms"], out[name]["bound_by"] = uncertain_bound_ms(name, "float32")
+                mu_f, var_f = model.predict_f(xq)
+                mu_0, var_0 = model.predict_uncertain(xq, np.zeros_like(xv))
+                out[name]["f32_zero_var_gap"] = float(max(np.abs(mu_0 - mu_f).max(), np.abs(var_0 - var_f).max()))
+                if name != "gpr":
+                    with tf32_allowed(torch):
+                        moments[name, "tf32"] = model.predict_uncertain(xq[sub], xv[sub])
+        out["rbf_gram_shapes"] = shapes
+        del models
+        torch.cuda.empty_cache()
+        with default_dtype(torch, torch.float64):
+            for name, (model, xq, xv) in uncertain_models(torch, np.float64).items():
+                mu_f, var_f = model.predict_f(xq)
+                mu_0, var_0 = model.predict_uncertain(xq, np.zeros_like(xv))
+                scale = max(1.0, float(np.abs(mu_f).max()), float(np.abs(var_f).max()))
+                out[name]["f64_zero_var_gap"] = float(max(np.abs(mu_0 - mu_f).max(), np.abs(var_0 - var_f).max()))
+                out[name]["f64_zero_var_tol"] = F64_REL_TOL * scale
+                if name != "gpr":
+                    moments[name, "f64"] = model.predict_uncertain(xq[sub], xv[sub])
+                del model
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            for name, (model, xq, xv) in uncertain_models(torch, np.float64, ("vfe", "svgp"), "cpu").items():
+                want = model.predict_uncertain(xq[sub], xv[sub])
+                for side in ("f32", "f64", "tf32"):
+                    out[name][f"{side}_vs_cpu"] = max(float(np.abs(a - b).max() / np.abs(b).max())
+                                                      for a, b in zip(moments[name, side], want))
+                del model
+            out["cpu_s"] = time.perf_counter() - t0
+    for name in ("vfe", "svgp", "gpr"):
+        r = out[name]
+        shape = f"n={SP_N} m={SP_M} d={SP_D}" if name != "gpr" else f"n={UP_GPR_N} d={D}"
+        print(f"# uncertain prediction {name} {shape} f32, {r['queries']} queries: first call {r['first_ms']:.3f} ms, "
+              f"warm {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} ms, {r['bound_by']}); at zero input variance vs "
+              f"predict_f max abs: f32 {r['f32_zero_var_gap']:.3e}, f64 {r['f64_zero_var_gap']:.3e} (tol "
+              f"{r['f64_zero_var_tol']:.3e})", flush=True)
+        check(r["f64_zero_var_gap"] <= r["f64_zero_var_tol"],
+              f"{name} predict_uncertain at zero variance vs predict_f: {r['f64_zero_var_gap']}")
+    for name in ("vfe", "svgp"):
+        r = out[name]
+        print(f"# uncertain prediction {name} at non-zero input variance, first {UP_CPU_QUERIES} queries, vs f64 on "
+              f"the CPU: max relative gap of mean and variance f64 card {r['f64_vs_cpu']:.3e} (tol {F64_REL_TOL}), "
+              f"f32 card {r['f32_vs_cpu']:.3e} (tol {UP_F32_TOL}; control: f32 with TF32 products "
+              f"{r['tf32_vs_cpu']:.3e}, must exceed it)", flush=True)
+        check(r["f64_vs_cpu"] <= F64_REL_TOL, f"{name} predict_uncertain f64 card vs CPU: {r['f64_vs_cpu']}")
+        check(r["f32_vs_cpu"] <= UP_F32_TOL, f"{name} predict_uncertain f32 card vs f64 CPU: {r['f32_vs_cpu']}")
+        check(r["tf32_vs_cpu"] > UP_F32_TOL,
+              f"the {name} predict_uncertain limit passes TF32 products ({r['tf32_vs_cpu']})")
+    print(f"# uncertain prediction launches {out['launches']}, peak {out['peak_mem_gb']:.2f} GB; the CPU's float64 "
+          f"VFE and SVGP {out['cpu_s']:.1f} s", flush=True)
+    check(out["launches"]["rbf_gram"] > 0, "the uncertain-prediction path never launched rbf_gram")
+    return out
+
+
+def vecchia_model(n, dtype, device=None, m=VE_M, chunk=VE_CHUNK):
+    """bench_vecchia.py's model: x ~ U(0, 1)^3, y = sin(4·Σx) + 0.1ε
+    (RandomState(0)), Rbf(3, ARD) with ℓ = 0.3, Gaussian(0.01), m
+    neighbours, ``chunk`` rows a step, ordering "auto"."""
+    from gptorch_tpu_torch import kernels, likelihoods
+    from gptorch_tpu_torch.models import VecchiaGPR
+
+    rng = np.random.RandomState(0)
+    x = rng.rand(n, VE_D).astype(dtype)
+    y = (np.sin(4.0 * x.sum(axis=1, keepdims=True)) + 0.1 * rng.randn(n, 1)).astype(dtype)
+    return VecchiaGPR(x, y, kernels.Rbf(VE_D, ARD=True, length_scales=0.3), likelihood=likelihoods.Gaussian(0.01),
+                      num_neighbors=m, chunk=chunk, device=device)
+
+
+def vecchia_stage_bounds(n, m, d, p, itemsize, dtype):
+    """Least times of the forward's three stages over all n rows: the
+    gather and Gram write n·m² entries and read n·m·(d + p) (ops: 3d + 3 an
+    entry); the batched factor reads and writes n·m² (m³/3 operations a
+    row); the solves read the factor once (m²(1 + p) operations a row)."""
+    return {"gather_gram": bound_ms((n * m * m + n * m * (d + p)) * itemsize, n * m * m * (3 * d + 3), dtype),
+            "factor": bound_ms(2 * n * m * m * itemsize, n * m ** 3 / 3, dtype),
+            "solves": bound_ms((n * m * m + n * m * (1 + p)) * itemsize, n * m * m * (1 + p), dtype)}
+
+
+def vecchia_stages(torch, model):
+    """Warm CUDA-event times of the forward's stages summed over the chunks
+    (the loss's own loop, split by events): the gather and the masked
+    neighbour Gram, the batched factor, the solves with the log density."""
+    from gptorch_tpu_torch.functions import _chol_raw
+    from gptorch_tpu_torch.ops import vecchia as vops
+
+    X, n = model.X, model.X.shape[0]
+    totals = dict.fromkeys(("gather_gram", "factor", "solves"), 0.0)
+    with torch.no_grad():
+        resid = model.Y - model.mean_function(X)
+        noise = model.likelihood.variance.value.reshape(())
+        for _ in range(2):  # the first pass warms up
+            events = []
+            for lo in range(0, n, model.chunk):
+                e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                idx, msk = model.nn_idx[lo:lo + model.chunk], model.nn_mask[lo:lo + model.chunk]
+                e[0].record()
+                knn, k_i, kxx = vops.masked_system(model.kernel, noise, X[idx], msk, X[lo:lo + model.chunk])
+                e[1].record()
+                L = _chol_raw(knn, blocked=False)
+                e[2].record()
+                mu, var = vops.conditional_solves(L, k_i, msk[:, :, None] * resid[idx], kxx, noise)
+                torch.sum(torch.log(var)[:, None] + torch.square(resid[lo:lo + model.chunk] - mu) / var[:, None])
+                e[3].record()
+                events.append(e)
+            torch.cuda.synchronize()
+        for e in events:
+            for key, (a, b) in zip(totals, ((0, 1), (1, 2), (2, 3))):
+                totals[key] += e[a].elapsed_time(e[b])
+    return totals
+
+
+def vecchia_phase(torch):
+    """The Vecchia GP at bench_vecchia.py's cell (n = 200000, d = 3, m = 32,
+    chunk 8192, f32): the build (ordering and neighbours on the host), a
+    warm value-and-grad (CUDA events) and its forward's stages, float32
+    against float64 NLML at full n, fit_scan Adam (captured), predict_f of
+    8 batches of 256, peak memory; then in float64 full history against the
+    dense GPR at n = 512 and the card against the CPU at n = 4096."""
+    from gptorch_tpu_torch import kernels
+    from gptorch_tpu_torch.ops import vecchia as vops
+
+    out = {"n": VE_N, "d": VE_D, "m": VE_M, "chunk": VE_CHUNK, "dtype": "float32"}
+    t0 = time.perf_counter()
+    model = vecchia_model(VE_N, np.float32)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["ordering"] = model.ordering
+    check(model.device.type == "cuda", "VecchiaGPR did not land on the card")
+    rng = np.random.RandomState(7)
+    xq = [rng.rand(Q, VE_D).astype(np.float32) for _ in range(BATCHES)]
+
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with gram_launch_shapes() as shapes:
+        loss32, grad32 = iterative_value_and_grad(torch, model)
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["value_and_grad_ms"] = time_ms(lambda: iterative_value_and_grad(torch, model), 3)
+        stages = vecchia_stages(torch, model)
+        bounds = vecchia_stage_bounds(VE_N, VE_M, VE_D, 1, 4, "float32")
+        out["stages_ms"] = {k: {"ms": v, "bound_ms": bounds[k][0], "bound_by": bounds[k][1]} for k, v in stages.items()}
+        out["forward_ms"] = sum(stages.values())
+
+        # float32 against float64 at full n, at the same values and neighbours;
+        # the limit's control has the neighbour Grams rounded to float16
+        with torch.no_grad():
+            k64 = kernels.Rbf(VE_D, ARD=True, length_scales=0.3).to("cuda").double()
+            resid = model.Y - model.mean_function(model.X)
+            loss64 = -float(vops.vecchia_nlml(k64, torch.tensor(0.01, dtype=torch.float64, device="cuda"),
+                                              model.X.double(), resid.double(), model.nn_idx,
+                                              model.nn_mask.double(), chunk=VE_CHUNK))
+            controls = {}
+            for name, context in (("tf32", tf32_allowed(torch)), ("f16_gram", f16_neighbour_grams())):
+                with context:
+                    controls[name] = -float(vops.vecchia_nlml(model.kernel, model.likelihood.variance.value, model.X,
+                                                              resid, model.nn_idx, model.nn_mask, chunk=VE_CHUNK))
+            del k64, resid
+        out["f32_vs_f64_rel"] = abs(loss32 - loss64) / abs(loss64)
+        out["f32_vs_f64_tol"] = VE_F32_TOL
+        out["controls_rel"] = {name: abs(loss - loss64) / abs(loss64) for name, loss in controls.items()}
+
+        t0 = time.perf_counter()
+        warm = model.fit_scan("Adam", max_iter=VE_STEPS)
+        torch.cuda.synchronize()
+        out["fit_scan_warm_s"] = time.perf_counter() - t0
+        out["launches_per_captured_step"] = check_captured("vecchia training")
+        t0 = time.perf_counter()
+        losses = model.fit_scan("Adam", max_iter=VE_STEPS)
+        torch.cuda.synchronize()
+        out["fit_scan_step_ms"] = 1e3 * (time.perf_counter() - t0) / VE_STEPS
+        replayed = replayed_launches()
+        out["losses"] = [float(v) for v in torch.cat([warm, losses]).cpu()]
+        predict_ms, means, variances = [], [], []
+        for xb in xq:
+            t0 = time.perf_counter()
+            mu, var = model.predict_f(xb)
+            predict_ms.append(1e3 * (time.perf_counter() - t0))
+            means.append(mu), variances.append(var)
+        out["predict_f_ms"] = predict_ms
+        out["launches"] = add_counts(read_counts(), replayed)
+    out["rbf_gram_shapes"] = shapes
+    out["peak_mem_gb"] = max(out["peak_mem_gb"], torch.cuda.max_memory_allocated() / 1e9)
+    mu, var = np.concatenate(means), np.concatenate(variances)
+    fwd_bound = sum(b[0] for b in bounds.values())
+    print(f"# vecchia n={VE_N} d={VE_D} m={VE_M} chunk={VE_CHUNK} f32 ({out['ordering']} ordering): build "
+          f"{out['build_s']:.2f} s (host: ordering, neighbours, k-d tree); value-and-grad "
+          f"{out['value_and_grad_ms']:.2f} ms (forward's stages {out['forward_ms']:.2f} ms, bound {fwd_bound:.3f} ms); "
+          f"fit_scan Adam (captured, "
+          f"launches recorded per captured step {out['launches_per_captured_step']}) warm call of {VE_STEPS} steps "
+          f"{out['fit_scan_warm_s']:.2f} s, timed {out['fit_scan_step_ms']:.2f} ms/step; predict_f per batch of {Q} "
+          f"median {np.median(predict_ms):.3f} ms; peak {out['peak_mem_gb']:.2f} GB; launches {out['launches']}; "
+          f"NLML f32 {-loss32:.3f} vs f64 {-loss64:.3f}, relative {out['f32_vs_f64_rel']:.3e} (tol "
+          f"{out['f32_vs_f64_tol']:.3e}; control: f32 with the neighbour Grams in float16 "
+          f"{out['controls_rel']['f16_gram']:.3e}, must exceed it; with TF32 products allowed "
+          f"{out['controls_rel']['tf32']:.3e})", flush=True)
+    for key, s in out["stages_ms"].items():
+        print(f"# vecchia stage {key}: {s['ms']:.3f} ms (bound {s['bound_ms']:.4f} ms, {s['bound_by']})", flush=True)
+    check(all(math.isfinite(v) for v in out["losses"]) and np.isfinite(grad32).all(), "non-finite Vecchia loss")
+    check(out["losses"][-1] < out["losses"][0], "Vecchia training did not lower the loss")
+    check(out["f32_vs_f64_rel"] <= out["f32_vs_f64_tol"], f"Vecchia f32 vs f64 NLML: {out['f32_vs_f64_rel']}")
+    check(out["controls_rel"]["f16_gram"] > out["f32_vs_f64_tol"],
+          f"the Vecchia limit passes the NLML with float16 Grams ({out['controls_rel']['f16_gram']})")
+    check(mu.shape == (Q * BATCHES, 1) and np.isfinite(mu).all() and np.isfinite(var).all() and (var >= 0).all(),
+          "Vecchia predict_f: wrong shape, non-finite or negative variance")
+    del model
+    torch.cuda.empty_cache()
+    out["full_history"] = vecchia_full_history(torch)
+    out["card_vs_cpu"] = vecchia_card_vs_cpu(torch)
+    return out
+
+
+def vecchia_full_history(torch):
+    """Float64 on the card, n = 512: with every previous point a neighbour
+    the Vecchia NLML and gradient are the dense GPR's (the chain rule)."""
+    from gptorch_tpu_torch import kernels, likelihoods
+    from gptorch_tpu_torch.models import GPR
+
+    with default_dtype(torch, torch.float64):
+        v = vecchia_model(VE_DENSE_N, np.float64, m=VE_DENSE_N - 1, chunk=VE_DENSE_N)
+        dense = GPR(v.X, v.Y, kernels.Rbf(VE_D, ARD=True, length_scales=0.3), likelihood=likelihoods.Gaussian(0.01),
+                    fast=False)
+        (lv, gv), (ld, gd) = iterative_value_and_grad(torch, v), iterative_value_and_grad(torch, dense)
+    out = {"loss_rel": abs(lv - ld) / abs(ld), "grad_rel": float(np.abs(gv - gd).max() / np.abs(gd).max())}
+    print(f"# vecchia f64 full history (m = n - 1 = {VE_DENSE_N - 1}) vs dense GPR on the card: NLML relative "
+          f"{out['loss_rel']:.3e} (tol 1e-10), gradient {out['grad_rel']:.3e} (tol {F64_REL_TOL})", flush=True)
+    check(out["loss_rel"] <= 1e-10, f"Vecchia full history vs dense NLML: {out['loss_rel']}")
+    check(out["grad_rel"] <= F64_REL_TOL, f"Vecchia full history vs dense gradient: {out['grad_rel']}")
+    return out
+
+
+def vecchia_card_vs_cpu(torch):
+    """Float64, n = 4096 (maxmin ordering), m = 32, chunk 1024: the card's
+    loss, gradient and predict_f of 256 queries against the CPU's, to
+    F64_REL_TOL."""
+    rng = np.random.RandomState(8)
+    xq = rng.rand(Q, VE_D)
+    runs = {}
+    with default_dtype(torch, torch.float64):
+        for device in ("cuda", "cpu"):
+            model = vecchia_model(VE_CHECK_N, np.float64, device=device, chunk=1024)
+            loss, grad = iterative_value_and_grad(torch, model)
+            runs[device] = (np.array([loss]), grad, *model.predict_f(xq))
+    rels = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(runs["cuda"], runs["cpu"])]
+    print(f"# vecchia f64 card vs CPU n={VE_CHECK_N} m={VE_M}: max relative gaps loss {rels[0]:.3e}, gradient "
+          f"{rels[1]:.3e}, predict_f mean {rels[2]:.3e}, var {rels[3]:.3e} (tol {F64_REL_TOL})", flush=True)
+    check(max(rels) <= F64_REL_TOL, f"Vecchia card vs CPU: {rels}")
+    return rels
+
+
+def latent_and_vecchia_phases(torch):
+    """The ψ-statistics, GPLVM, uncertain-prediction and Vecchia paths, each
+    driven with the launch counts set to 0 just before it and read just
+    after, and K1's shapes on them checked against gram_phase's cases;
+    returns their results and the seconds they took together."""
+    t0 = time.perf_counter()
+    out = {"psi_statistics": psi_statistics_phase(torch), "gplvm": gplvm_phase(torch),
+           "uncertain_prediction": uncertain_prediction_phase(torch), "vecchia": vecchia_phase(torch)}
+    check_gram_coverage(set().union(*(result["rbf_gram_shapes"] for result in out.values())))
+    seconds = time.perf_counter() - t0
+    print(f"# psi statistics, gplvm, uncertain prediction and vecchia phases: {seconds:.1f} s together",
+          flush=True)
+    return out, seconds
+
+
 def build_kernels():
     """Builds the four kernel sources of the package on ``sys.path`` (one
     nvcc each, all started together) and loads them: (seconds, (gram,
@@ -2750,6 +3460,7 @@ def main() -> int:
         iterative_training["card_vs_cpu"] = iterative_card_vs_cpu(torch, reference)
     finally:
         stop_process(reference[0])
+    latent, latent_s = latent_and_vecchia_phases(torch)
 
     paths = {"serving": serving["launches"], "training": training["launches"],
              "general_training": general_training["launches"], "observe_loop": observe_loop["launches"],
@@ -2757,7 +3468,8 @@ def main() -> int:
              "svgp_serving": svgp_serving["launches"], "svgp_captured": svgp_captured["launches"],
              "dkl_studentt_svgp": dkl["launches"], "zoo_grams": zoo_grams["launches"],
              "zoo_training": zoo_training["launches"], "iterative_training": iterative_training["launches"],
-             "iterative_serving": iterative_serving["launches"]}
+             "iterative_serving": iterative_serving["launches"],
+             **{name: result["launches"] for name, result in latent.items()}}
     g, c = gram_rows[0], contract_rows[0]
     m9, lr = mvm_rows["timed"][9], lowrank_rows["timed"][IT_PROBES + 1]
     kernels_line = {"kernels": [
@@ -2839,7 +3551,10 @@ def main() -> int:
           f"{serving['peak_mem_gb']:.1f} GB, training {training['peak_mem_gb']:.1f} GB, general training "
           f"{general_training['peak_mem_gb']:.1f} GB, observe loop {observe_loop['peak_mem_gb']:.1f} GB, svgp "
           f"training {svgp_training['peak_mem_gb']:.3f} GB, dkl {dkl['peak_mem_gb']:.3f} GB, zoo training "
-          f"{zoo_training['peak_mem_gb']:.1f} GB, iterative training {iterative_training['peak_mem_gb']:.3f} GB; "
+          f"{zoo_training['peak_mem_gb']:.1f} GB, iterative training {iterative_training['peak_mem_gb']:.3f} GB, "
+          f"gplvm {latent['gplvm']['peak_mem_gb']:.3f} GB, uncertain prediction "
+          f"{latent['uncertain_prediction']['peak_mem_gb']:.2f} GB, vecchia {latent['vecchia']['peak_mem_gb']:.2f} "
+          f"GB (their phases {latent_s:.1f} s); "
           f"launches count each captured step's recorded launches once per "
           f"replay; total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels_line), flush=True)

@@ -9,6 +9,7 @@ hand-written Hopper kernel under ``csrc/`` with a plain PyTorch twin.
 from . import (
     bijectors,
     convert,
+    ekernels,
     functions,
     kernels,
     likelihoods,
@@ -28,6 +29,7 @@ from .param import Param, positive_param
 __all__ = [
     "bijectors",
     "convert",
+    "ekernels",
     "functions",
     "kernels",
     "likelihoods",

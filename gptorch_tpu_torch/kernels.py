@@ -217,6 +217,9 @@ class Rbf(Stationary):
         return rbf_gram((X / ell).contiguous(), x2, var=_scalar(self.variance), diag=diag)
 
 
+SquaredExponential = Rbf
+
+
 class RationalQuadratic(Stationary):
     """k(r) = σ² (1 + r²/(2α))^(-α)."""
 

@@ -1,4 +1,5 @@
 from .base import GPModel
+from .gplvm import GPLVM
 from .gpr import GPR
 from .posterior import (
     FantasyGPRChain,
@@ -11,16 +12,19 @@ from .posterior import (
     ServingSVGPPosterior,
     SVGPPosterior,
     fitc_posterior,
+    gplvm_posterior,
     gpr_posterior,
     iterative_gpr_posterior,
     svgp_posterior,
     vfe_posterior,
 )
 from .sparse_gpr import FITC, SVGP, VFE
+from .vecchia import VecchiaGPR
 
 __all__ = [
     "FITC",
     "FantasyGPRChain",
+    "GPLVM",
     "GPModel",
     "GPR",
     "GPRPosterior",
@@ -33,7 +37,9 @@ __all__ = [
     "ServingLowRankPosterior",
     "ServingSVGPPosterior",
     "VFE",
+    "VecchiaGPR",
     "fitc_posterior",
+    "gplvm_posterior",
     "gpr_posterior",
     "iterative_gpr_posterior",
     "svgp_posterior",

@@ -50,7 +50,7 @@ from ..ops.contract import kernel_takes
 from ..ops.gpr_fast import radial_nlml
 from ..ops.gpr_general import general_nlml
 from ..ops.iterative import radial_nlml_iterative, radial_slq_diagnostics
-from .base import GPModel
+from .base import GPModel, _coerce_io
 
 #: Auto-routing threshold: below this n the generic autograd path is cheap;
 #: at and above it the fused closed-form-backward paths are faster and
@@ -345,12 +345,33 @@ class GPR(GPModel):
 
         return gpr_posterior(self)
 
+    @_coerce_io
     def predict_uncertain(self, x_mean, x_var):
-        """Posterior moments at uncertain inputs: not ported yet."""
-        raise NotImplementedError(
-            "predict_uncertain needs the psi-statistics kernels (ekernels), which are not ported yet: "
-            "ROADMAP queue 1, item 6"
-        )
+        """Posterior moments at uncertain inputs x* ~ N(x_mean, x_var) by
+        moment matching through the kernel's ψ-statistics (Girard et al.
+        2003): the exact-GP conditional is the Z = X case of the sparse
+        one, f*(x) ~ N(k(x,X) α, k(x,x) − k(x,X)K⁻¹k(X,x)) with
+        α = K⁻¹(y − m(X)) and G = K⁻¹.  Build the model with a ψ-statistics
+        kernel (:class:`gptorch_tpu_torch.ekernels.Rbf` / ``.Linear``).  At
+        ``x_var = 0`` this equals ``predict_f``.  It forms K⁻¹ and ψ₂ with
+        Z = X, (n*, n, n) in row chunks: O(n*·n²) per call (dense solver
+        only).
+
+        :param x_mean: (n*, q) input means.
+        :param x_var: (n*, q) diagonal or (n*, q, q) full covariances.
+        :return: (mean (n*, p), var (n*, p)).
+        """
+        if self.solver != "dense":
+            raise NotImplementedError(
+                "predict_uncertain requires the dense solver (it needs the explicit K^-1)"
+            )
+        from ..ekernels import uncertain_predict
+
+        x = self.X
+        L = cholesky(self._compute_kyy(x=x))
+        linv = trtrs(torch.eye(x.shape[0], dtype=x.dtype, device=x.device), L)
+        w = linv.T @ (linv @ (self.Y - self.mean_function(x)))
+        return uncertain_predict(self.kernel, self.mean_function, x, w, linv.T @ linv, x_mean, x_var)
 
     def _predict(self, x_new, diag=True):
         """Posterior p(f* | y) at x_new (an iterative model predicts through

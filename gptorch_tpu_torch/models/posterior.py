@@ -615,3 +615,11 @@ def svgp_posterior(model) -> SVGPPosterior:
         Linv_m = trtrs(model.induced_output_mean.value, L)
         beta = trtrs(model.induced_output_chol_cov.value, L)
     return SVGPPosterior(model.kernel, model.likelihood, model.mean_function, z, L, Linv_m, beta)
+
+
+@torch.no_grad()
+def gplvm_posterior(model) -> LowRankPosterior:
+    """Factorize a GPLVM once into a :class:`LowRankPosterior` over its
+    latent space (no mean function: the GPLVM's is zero)."""
+    L, LB, c = model._posterior()
+    return LowRankPosterior(model.kernel, model.likelihood, None, model.Z.value.detach().clone(), L, LB, c)

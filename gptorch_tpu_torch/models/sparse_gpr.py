@@ -31,7 +31,7 @@ from ..functions import add_diag, cholesky, lt_log_determinant, trtrs
 from ..likelihoods import Gaussian
 from ..param import Param
 from ..util import as_array, kmeans_centers
-from .base import GPModel
+from .base import GPModel, _coerce_io
 from .gpr import GPR
 
 
@@ -155,13 +155,23 @@ class _InducingPointsGP(GPModel):
         f*(x) ~ N(k(x,Z) w, k(x,x) − k(x,Z) G k(Z,x))."""
         raise NotImplementedError
 
+    @_coerce_io
     def predict_uncertain(self, x_mean, x_var):
-        """Prediction at uncertain inputs needs the kernels' ψ-statistics
-        (``gptorch_tpu.ekernels``), which are not ported yet."""
-        raise NotImplementedError(
-            "predict_uncertain needs the psi-statistics kernels (ekernels), "
-            "which are not ported yet: ROADMAP queue 1, item 6"
-        )
+        """Posterior moments at uncertain inputs x* ~ N(x_mean, x_var) via
+        the kernel's ψ-statistics (moment matching, Girard et al. 2003),
+        from the conditional's (w, G) (:meth:`_uncertain_wG`).  Build the
+        model with a ψ-statistics kernel
+        (:class:`gptorch_tpu_torch.ekernels.Rbf` / ``.Linear``).  At
+        ``x_var = 0`` this equals ``predict_f``.
+
+        :param x_mean: (n*, q) input means.
+        :param x_var: (n*, q) diagonal or (n*, q, q) full covariances.
+        :return: (mean (n*, p), var (n*, p)).
+        """
+        from ..ekernels import uncertain_predict
+
+        w, G = self._uncertain_wG()
+        return uncertain_predict(self.kernel, self.mean_function, self.Z.value.detach(), w, G, x_mean, x_var)
 
 
 def _diag_or_full(kernel, x_new, mean, minus, plus, diag):

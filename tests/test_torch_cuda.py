@@ -897,3 +897,66 @@ def test_iterative_gpr_card_matches_cpu(cuda):
         torch.testing.assert_close(g, out["cpu"][1][k], rtol=0, atol=1e-8 * scale)
     for a, b in zip(out["cuda"][2], out["cpu"][2]):
         np.testing.assert_allclose(a, b, rtol=1e-7, atol=1e-9)
+
+
+def _gplvm_card(**kw):
+    from gptorch_tpu_torch.models import GPLVM
+
+    rng = np.random.RandomState(0)
+    y = np.tanh(rng.randn(60, 2) @ rng.randn(2, 6)) + 0.05 * rng.randn(60, 6)
+    return GPLVM(y, 3, num_inducing_points=10, device="cuda", **kw)
+
+
+def _vecchia_card():
+    from gptorch_tpu_torch.models import VecchiaGPR
+
+    rng = np.random.RandomState(1)
+    x = rng.rand(3000, 3)
+    y = np.sin(4.0 * x.sum(axis=1, keepdims=True)) + 0.1 * rng.randn(3000, 1)
+    return VecchiaGPR(x, y, kernels.Rbf(3, ARD=True, length_scales=0.3), likelihood=likelihoods.Gaussian(0.01),
+                      num_neighbors=16, chunk=1024, device="cuda")
+
+
+@pytest.mark.parametrize("name", ["gplvm", "gplvm_large_p", "gplvm_dynamical", "vecchia"])
+def test_captured_gplvm_and_vecchia_losses_match_eager(cuda, name):
+    """The GPLVM's collapsed bound (iid, large p, dynamical prior) and the
+    Vecchia likelihood in float64: fit_scan's captured graph takes the eager
+    loop's Adam steps (no host read in either loss; the GPLVM's under the
+    fixed jitter policy).  The two loops' Adam bias corrections round apart
+    (the step count on the host or on the card), which the dynamical KL
+    amplifies by cond(K_t): its time kernel's length scale, 1.5 steps,
+    keeps K_t's condition near 3e4 (at 4 steps, about 1e7, the losses part
+    by 1e-10 relative after five steps)."""
+    make = {"gplvm": _gplvm_card, "gplvm_large_p": lambda: _gplvm_card(large_p=True),
+            "gplvm_dynamical": lambda: _gplvm_card(times=np.arange(60.0),
+                                                   time_kernel=kernels.Rbf(1, length_scales=1.5)),
+            "vecchia": _vecchia_card}[name]
+    with _float64():
+        (l0, v0, _, _, _), (l1, v1, _, run, _) = _captured_and_eager(make, "Adam", 6, 1e-2)
+    assert run["captured"]
+    assert run["launches_per_step"]["rbf_gram"] == (0 if name == "vecchia" else 1 + (name == "gplvm_dynamical"))
+    torch.testing.assert_close(l1, l0, rtol=1e-10, atol=0)
+    for k in v0:
+        torch.testing.assert_close(v1[k], v0[k], rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("cov", ["diag", "full"])
+def test_predict_uncertain_card_matches_cpu(cuda, cov):
+    """predict_uncertain of VFE, SVGP and GPR with ekernels.Rbf in float64:
+    the card (K1 for every Gram) against the CPU, 1e-9."""
+    from gptorch_tpu_torch import ekernels
+
+    rng = np.random.RandomState(2)
+    x, xq = rng.randn(300, 3), rng.randn(20, 3)
+    y = np.sin(x[:, :1]) + 0.1 * rng.randn(300, 1)
+    z, a = x[:30] + 0.01, 0.2 * rng.randn(20, 3, 3)
+    xv = 0.1 * np.exp(rng.randn(20, 3)) if cov == "diag" else a @ a.transpose(0, 2, 1) + 0.05 * np.eye(3)
+    with _float64():
+        for make in (lambda d: VFE(x, y, ekernels.Rbf(3, ARD=True), inducing_points=z, device=d),
+                     lambda d: SVGP(x, y, ekernels.Rbf(3, ARD=True), inducing_points=z, device=d),
+                     lambda d: GPR(x, y, ekernels.Rbf(3, ARD=True), likelihood=likelihoods.Gaussian(0.1), device=d)):
+            before = gram.rbf_gram.launches
+            card = make("cuda").predict_uncertain(xq, xv)
+            assert gram.rbf_gram.launches > before
+            for got, want in zip(card, make("cpu").predict_uncertain(xq, xv)):
+                np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9 * np.abs(want).max())

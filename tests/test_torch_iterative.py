@@ -379,5 +379,5 @@ def test_iterative_errors():
         dense.posterior(love_rank=8)
     with pytest.raises(ValueError, match="solver='iterative'"):
         dense.iterative_diagnostics()
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="dense solver"):
         model.predict_uncertain(x[:2], np.zeros((2, 3)))

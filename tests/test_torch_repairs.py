@@ -8,6 +8,14 @@ in float64 (tolerance rel 1e-9 unless a test says otherwise).
    leaves the model with the values it had on entry, as the JAX loops do.
 3. Off the CPU, inputs wider than the contraction kernel takes (d > 32 or
    dy > 32) route to the kernel-general path; the CPU route is unchanged.
+
+And two gaps of the port's surface against the JAX package:
+
+4. ``kernels.SquaredExponential`` is the alias of ``kernels.Rbf``.
+5. ``Param`` has ``transform()`` (the reference-API alias of ``value``),
+   ``dtype`` and ``numel()``, and the functional updates ``with_raw`` and
+   ``with_value``, which return a new Param and leave the old one as it
+   was (in the port a new module, whose raw is a detached copy).
 """
 
 import jax
@@ -18,11 +26,12 @@ import torch
 
 from gptorch_tpu import kernels as jax_kernels
 from gptorch_tpu import likelihoods as jax_likelihoods
+from gptorch_tpu import param as jax_param
 from gptorch_tpu.models import GPR as JaxGPR
 from gptorch_tpu.models import SVGP as JaxSVGP
 from gptorch_tpu.module import get_trainable as jax_get_trainable
 from gptorch_tpu.module import with_trainable as jax_with_trainable
-from gptorch_tpu_torch import convert, kernels, likelihoods
+from gptorch_tpu_torch import bijectors, convert, kernels, likelihoods, param
 from gptorch_tpu_torch.models import GPR, SVGP
 from gptorch_tpu_torch.module import get_trainable
 from gptorch_tpu_torch.ops import contract
@@ -174,3 +183,61 @@ def test_off_cpu_routing_follows_the_contraction_kernel(d, dy, fused):
     assert contract.kernel_takes(d, dy) == fused
     assert tm._fast_eligible(xm, ym) == fused
     assert tm._general_eligible(xm)
+
+
+def test_squared_exponential_is_the_rbf_alias():
+    x = np.random.RandomState(3).randn(6, D)
+    assert kernels.SquaredExponential is kernels.Rbf
+    want = np.asarray(jax_kernels.SquaredExponential(D, ARD=True, length_scales=np.array([0.6, 1.4])).K(x))
+    got = kernels.SquaredExponential(D, ARD=True, length_scales=np.array([0.6, 1.4])).K(torch.as_tensor(x))
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-12, atol=0)
+
+
+PARAM_CASES = {
+    "vector": (lambda p: p.positive_param, np.array([0.3, 1.7, 2.5])),
+    "scalar": (lambda p: p.positive_param, 0.4),
+    "matrix": (lambda p: p.Param, np.arange(6.0).reshape(2, 3) - 2.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PARAM_CASES))
+def test_param_transform_dtype_numel_match_jax(case):
+    make, value = PARAM_CASES[case]
+    jp, tp = make(jax_param)(value), make(param)(value)
+    np.testing.assert_allclose(tp.transform().detach().numpy(), np.asarray(jp.transform()), rtol=1e-15)
+    assert torch.equal(tp.transform(), tp.value)
+    assert tp.numel() == jp.numel() and isinstance(tp.numel(), int)
+    assert tp.dtype == torch.float64 and str(jp.dtype) == "float64"
+
+
+@pytest.mark.parametrize("case", sorted(PARAM_CASES))
+def test_param_functional_updates_match_jax(case):
+    make, value = PARAM_CASES[case]
+    jp, tp = make(jax_param)(value), make(param)(value)
+    new_value = 1.5 * np.abs(np.asarray(value, dtype=float)) + 0.2
+    jv, tv = jp.with_value(new_value), tp.with_value(new_value)
+    np.testing.assert_allclose(tv.value.detach().numpy(), np.asarray(jv.value), rtol=1e-14)
+    np.testing.assert_allclose(tv.raw.detach().numpy(), np.asarray(jv.raw), rtol=1e-14)
+    # the raw is taken as given, and the old Param is unchanged
+    raw = np.asarray(jv.raw) - 0.3
+    np.testing.assert_array_equal(tp.with_raw(raw).raw.detach().numpy(), np.asarray(jp.with_raw(raw).raw))
+    np.testing.assert_allclose(tp.value.detach().numpy(), np.asarray(jp.value), rtol=1e-15)
+    assert tv is not tp and tv.raw is not tp.raw
+    assert tv.bijector == tp.bijector and tv.trainable == tp.trainable and tv.raw.is_leaf
+
+
+def test_with_value_replaces_a_models_param():
+    """A model's Param is replaced by assignment, as in the JAX tests
+    (``model.Xmean = model.Xmean.with_value(x)``); the trainability and the
+    bijector carry over, and the model's trainables follow."""
+    tm = SVGP(*_data(), kernels.Rbf(D), inducing_points=np.zeros((3, D)), device="cpu")
+    tm.kernel.variance.trainable = False
+    old = tm.kernel.variance
+    tm.kernel.variance = tm.kernel.variance.with_value(np.array([2.5]))
+    assert float(tm.kernel.variance.value) == pytest.approx(2.5, rel=1e-15)
+    assert float(old.value) == pytest.approx(1.0, rel=1e-15)
+    assert not tm.kernel.variance.trainable and "kernel.variance" not in get_trainable(tm)
+    assert isinstance(tm.kernel.variance.bijector, bijectors.Exp)
+    z = tm.Z.with_raw(np.ones((3, D)))
+    tm.Z = z
+    assert get_trainable(tm)["Z"] is z.raw

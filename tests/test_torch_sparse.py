@@ -18,11 +18,13 @@ import numpy as np
 import pytest
 import torch
 
+from gptorch_tpu import ekernels as jax_ekernels
 from gptorch_tpu import kernels as jax_kernels
 from gptorch_tpu import likelihoods as jax_likelihoods
 from gptorch_tpu import mean_functions as jax_means
 from gptorch_tpu.bijectors import LowerCholesky as JaxLowerCholesky
 from gptorch_tpu.models import FITC as JaxFITC
+from gptorch_tpu.models import GPR as JaxGPR
 from gptorch_tpu.models import SVGP as JaxSVGP
 from gptorch_tpu.models import VFE as JaxVFE
 from gptorch_tpu.module import get_trainable as jax_get_trainable
@@ -30,7 +32,7 @@ from gptorch_tpu.module import with_trainable as jax_with_trainable
 from gptorch_tpu.models.sparse_gpr import init_inducing_points as jax_init_inducing_points
 from gptorch_tpu.models.sparse_gpr import latent_marginals as jax_latent_marginals
 from gptorch_tpu.util import kmeans_centers as jax_kmeans_centers
-from gptorch_tpu_torch import bijectors, convert, kernels, likelihoods, mean_functions, settings
+from gptorch_tpu_torch import bijectors, convert, ekernels, kernels, likelihoods, mean_functions, settings
 from gptorch_tpu_torch.models import FITC, GPR, SVGP, VFE
 from gptorch_tpu_torch.models import posterior as posterior_module
 from gptorch_tpu_torch.models import sparse_gpr
@@ -295,9 +297,33 @@ def test_latent_marginals_match_jax(diag):
 
 
 def test_predict_uncertain_is_not_ported():
-    m = _port_model("svgp", "zero", 1)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        m.predict_uncertain(np.zeros((2, D)), np.zeros((2, D)))
+    """Named when the method raised; it now holds ``predict_uncertain`` of
+    VFE, FITC, SVGP (plain and whitened) and GPR, built with the ψ-statistics
+    Rbf, to the JAX package's (diagonal and full input covariances, rel
+    1e-9) and to ``predict_f`` at zero input variance (abs 1e-10)."""
+    x, y, z = _data(dy=2)
+    rng = np.random.RandomState(9)
+    xq, s, a = rng.randn(5, D), 0.2 * np.exp(rng.randn(5, D)), 0.3 * rng.randn(5, D, D)
+    covs = (s, a @ a.transpose(0, 2, 1) + 0.05 * np.eye(D))
+    for jax_cls, port_cls, kw in [(JaxVFE, VFE, {}), (JaxFITC, FITC, {}), (JaxSVGP, SVGP, {}),
+                                  (JaxSVGP, SVGP, {"whiten": True}), (JaxGPR, GPR, None)]:
+        sparse = {} if kw is None else dict(inducing_points=z, **kw)
+        jm = jax_cls(x, y, jax_ekernels.Rbf(D, ARD=True, variance=1.2), likelihood=jax_likelihoods.Gaussian(0.1),
+                     **sparse)
+        tm = port_cls(x, y, ekernels.Rbf(D, ARD=True, variance=1.2), likelihood=likelihoods.Gaussian(0.1),
+                      device="cpu", **sparse)
+        values = {k: np.asarray(v) + 0.05 * rng.randn(*np.shape(v)) for k, v in jax_get_trainable(jm).items()}
+        convert.load_trainable(tm, values)
+        # one compiled call for both covariances (eager JAX dispatches op by op)
+        want = jax.jit(lambda v, xq, *covs: [jax_with_trainable(jm, v).predict_uncertain(xq, c) for c in covs])(
+            {k: jnp.asarray(v) for k, v in values.items()}, xq, *covs)
+        for cov, w in zip(covs, want):
+            for got, wt in zip(tm.predict_uncertain(xq, cov), w):
+                _close(got, wt)
+        mu_f, var_f = tm.predict_f(xq)
+        mu_u, var_u = tm.predict_uncertain(xq, np.zeros_like(xq))
+        np.testing.assert_allclose(mu_u, mu_f, rtol=0, atol=1e-10, err_msg=port_cls.__name__)
+        np.testing.assert_allclose(var_u, var_f, rtol=0, atol=1e-10, err_msg=port_cls.__name__)
 
 
 @pytest.mark.parametrize("diag", [True, False])
