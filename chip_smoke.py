@@ -131,6 +131,35 @@ parent.
    batches of 256, peak memory; full history against the dense GPR at
    n = 512 and the card against the CPU at n = 4096, in float64.
    Phases 16-19 print the seconds they took together.
+20. statespace: bench_ssgp.py's cell (Matern32(1, ℓ = 0.5), Gaussian(0.1),
+   x ~ U(0, 1000) sorted, float32) at bench.py's n = 65536: one warm and
+   two timed value-and-grads, the stages of the forward (assemble and
+   discretize, the element build, the scan, the NLML, the smoother), the
+   device launches of one value-and-grad, fit_scan Adam (captured), peak
+   memory, predict_f of 8 batches of 256, predict_f_samples(16) over 256,
+   filter_moments; then at bench_ssgp.py's n = 10⁶ the chunked scan's
+   value-and-grad and peak memory.  Checks: float32 against float64 NLML
+   and gradient at both n; in float64 at n = 4096 the card against the CPU
+   for Matern12/32/52 and Matern32 + Matern52 (s = 5), chunked (1024) and
+   not; the state-space GP against the dense GPR at n = 2048 (1e-9); the
+   moments of 512 joint draws against predict_f.
+21. kronecker: GridGPR on the 64 × 64 × 64 grid (N = 262144) with Rbf(1)
+   per axis (K1 builds each axis Gram and cross Gram), Gaussian(0.1), y
+   from a seed, float32: a value-and-grad and its stages (the three eighs,
+   the mode products), fit_scan Adam (eager: eigh reads the host),
+   posterior(), predict_f of 8 batches of 256 off-grid queries and of 64
+   with diag=False.  Checks: in float64 on a 16 × 12 × 10 grid the card
+   against the CPU, and the GridGPR against the dense GPR with the product
+   kernel.
+22. ski: bench_calibration.py's 3-D SKI row (Matern32(1, ℓ = 0.5) per axis,
+   grid 16³, Gaussian(0.01), 16 probes, 256 CG steps, tolerance 1e-6) at
+   bench.py's matrix-free n = 100000 on bench_calibration.make_data's
+   recipe, float32: a value-and-grad and its stages (one product split
+   into Wᵀ, the Toeplitz FFTs and W; mBCG; SLQ), two value-and-grads
+   bitwise equal, posterior(), predict_mean over 8 × 256, predict_f of 16.
+   Check: in float64 at n = 2048 (CG to 1e-11, noise 0.1 so it converges)
+   the card against the CPU.
+   Phases 20-22 print the seconds they took together.
 
 On the card, fit_scan captures a first-order run as a CUDA graph; the
 training, general-training, SVGP and DKL phases check that it did.  Before
@@ -299,6 +328,25 @@ VE_N, VE_D, VE_M, VE_CHUNK, VE_STEPS, VE_DENSE_N, VE_CHECK_N = 200000, 3, 32, 81
 # allowed is printed beside it (the d = 3 products of the neighbour Grams
 # did not take TF32 on an H100: the reading equalled the pinned one).
 VE_F32_TOL = 1e-5
+# The state-space GP at bench_ssgp.py's cell: n = 65536 (bench.py:291-292)
+# and bench_ssgp.py's default n = 10⁶ (the chunked scan, chunk 65536);
+# fit_scan Adam SS_STEPS a call; SS_SAMPLES joint draws timed and
+# SS_MOMENT_SAMPLES held by their moments; in float64 the card against the
+# CPU at SS_CHECK_N (chunk SS_CHECK_CHUNK) and the dense GPR at SS_DENSE_N.
+SS_N, SS_N_LONG, SS_STEPS, SS_SAMPLES, SS_MOMENT_SAMPLES = 65536, 1_000_000, 4, 16, 512
+SS_CHECK_N, SS_CHECK_CHUNK, SS_DENSE_N = 4096, 1024, 2048
+SS_KERNELS = ("matern12", "matern32", "matern52", "matern32+matern52")
+# float32 against float64 NLML (relative) and gradient (over its largest
+# entry), by n: an H100 reads 1.3e-7 and 9.8e-7 at SS_N, 5.9e-7 and
+# 1.15e-4 at SS_N_LONG (a million float32 terms of both signs summed into
+# each gradient entry); the limits keep a factor of about 20.
+SS_F32_TOL = {SS_N: {"nlml": 3e-6, "grad": 2e-5}, SS_N_LONG: {"nlml": 1.2e-5, "grad": 2.5e-3}}
+# The Kronecker grid GP on the JAX docstring's 64³ grid (models/kronecker.py:
+# 14-15); diag=False at KR_FULL_QUERIES; the float64 check on KR_CHECK_SIZES.
+KR_SIZE, KR_STEPS, KR_FULL_QUERIES, KR_CHECK_SIZES = 64, 4, 64, (16, 12, 10)
+# SKI at bench_calibration.py:95-104's 3-D row, at bench.py's n = 100000
+# (its test split gives the queries); the float64 check at SKI_CHECK_N.
+SKI_N, SKI_GRID, SKI_CG_QUERIES, SKI_CHECK_N, SKI_CHECK_TOL, SKI_CHECK_ITERS = 100000, 16, 16, 2048, 1e-11, 400
 
 
 def lowrank_tol(name, n):
@@ -402,7 +450,8 @@ def dtype_name(dtype):
 # GPLVM and uncertain-prediction paths launch (checked by
 # check_gram_coverage): the GPLVM's Kuu, K(Z, latents) and K(Z, queries)
 # at q = 10; VFE's Kuf over all n; SVGP's start of q(u) from an exact GP
-# on 100 points; GPR's K(X, X) and K(X, queries) at n = 4096.
+# on 100 points; GPR's K(X, X) and K(X, queries) at n = 4096; the grid
+# GP's axis Grams (64², d = 1) and cross Grams of 256 and 64 queries.
 GRAM_CASES = [
     ("sym+diag", N, N, True, D, True),
     ("cross", N, Q, False, D, False),
@@ -420,6 +469,9 @@ GRAM_CASES = [
     ("q(u) Kz", 100, SP_M, False, SP_D, False),
     ("gpr K", UP_GPR_N, UP_GPR_N, True, D, False),
     ("gpr Ks", UP_GPR_N, UP_GPR_QUERIES, False, D, False),
+    ("grid K", KR_SIZE, KR_SIZE, True, 1, False),
+    ("grid Ks", Q, KR_SIZE, False, 1, False),
+    ("grid Ks full", KR_FULL_QUERIES, KR_SIZE, False, 1, False),
 ]
 
 
@@ -1226,7 +1278,7 @@ def general_stages(torch, model):
     return times
 
 
-def sample_moments(samples, mean, var):
+def sample_moments(samples, mean, var, what="general"):
     """The draws' mean and variance at each query against ``predict_f``'s
     (``mean``, ``var``), in standard errors: sd/√S for the mean,
     σ²·√(2/(S − 1)) for the variance; each must stay within 5."""
@@ -1236,7 +1288,7 @@ def sample_moments(samples, mean, var):
     v_se = np.abs(samples.var(0, ddof=1) - var) / (var * math.sqrt(2.0 / (S - 1)))
     out = {"mean_max_se": float(m_se.max()), "var_max_se": float(v_se.max()), "var_range": [float(var.min()),
                                                                                          float(var.max())]}
-    print(f"# general predict_f_samples {S} x {Q}: sample mean within {out['mean_max_se']:.2f} standard errors "
+    print(f"# {what} predict_f_samples {S} x {Q}: sample mean within {out['mean_max_se']:.2f} standard errors "
           f"of predict_f, sample variance within {out['var_max_se']:.2f} (limit 5); predict_f variance "
           f"{out['var_range'][0]:.3e} .. {out['var_range'][1]:.3e}", flush=True)
     check(out["mean_max_se"] <= 5 and out["var_max_se"] <= 5, "predict_f_samples moments disagree with predict_f")
@@ -1446,12 +1498,13 @@ def sparse_data(n, d, m, dtype, seed=0):
 
 
 def device_busy_ms(torch, fn):
-    """(wall ms, device-busy ms, {activity name: ms}) of ``fn()`` under
-    ``torch.profiler``.  Busy time is the union of the intervals of every
-    kernel, copy and set the card ran; the profiler's device-side ranges of
-    user annotations (``Optimizer.step#Adam.step``, which span kernels and
-    the gaps between them) are left out.  Raises CheckFailed if the trace
-    holds no device activity."""
+    """(wall ms, device-busy ms, {activity name: ms}, device activities) of
+    ``fn()`` under ``torch.profiler``.  Busy time is the union of the
+    intervals of every kernel, copy and set the card ran; the profiler's
+    device-side ranges of user annotations (``Optimizer.step#Adam.step``,
+    which span kernels and the gaps between them) are left out, and each
+    other activity counts once.  Raises CheckFailed if the trace holds no
+    device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1471,7 +1524,7 @@ def device_busy_ms(torch, fn):
         busy_us += max(0.0, end - max(start, reach))
         reach = max(reach, end)
     check(busy_us > 0, "torch.profiler recorded no device activity")
-    return wall, busy_us / 1e3, by_name
+    return wall, busy_us / 1e3, by_name, len(spans)
 
 
 def svgp_training_phase(torch, gram, contract):
@@ -1516,7 +1569,7 @@ def svgp_training_phase(torch, gram, contract):
         out["losses"] = [float(v) for v in torch.cat([warm, losses]).cpu()]
 
         # device activity of a short window of the same loop
-        prof_wall, busy, by_name = device_busy_ms(
+        prof_wall, busy, by_name, _ = device_busy_ms(
             torch, lambda: model.fit_scan("Adam", max_iter=SP_PROFILED_STEPS, learning_rate=SP_LR, generator=gen))
         out["profiled_wall_ms_per_step"] = prof_wall / SP_PROFILED_STEPS
         out["device_ms_per_step"] = busy / SP_PROFILED_STEPS
@@ -1833,7 +1886,7 @@ def svgp_captured_phase(torch, gram, contract, captured):
         torch.cuda.synchronize()
         out["eager_step_ms"] = 1e3 * (time.perf_counter() - t0) / SP_STEPS
         eager_counts = read_counts()
-        _, busy, _ = device_busy_ms(torch, lambda: fit._fit_scan(model, "Adam", SP_STEPS, SP_LR, gen, capture=False))
+        _, busy, _, _ = device_busy_ms(torch, lambda: fit._fit_scan(model, "Adam", SP_STEPS, SP_LR, gen, capture=False))
         out["eager_device_ms_per_step"] = busy / SP_STEPS
         out["eager_idle_share"] = 1.0 - out["eager_device_ms_per_step"] / out["eager_step_ms"]
         del model
@@ -2442,14 +2495,16 @@ def iterative_model(n, dtype, device=None, precond_rank=IT_RANK, cg_tol=IT_TOL, 
 def iterative_value_and_grad(torch, model):
     """One loss and backward of any model (the matrix-free GPR's, the
     Vecchia GP's, ...); returns (loss, the gradient as one float64 vector
-    in sorted trainable order)."""
+    in sorted trainable order; zeros for a trainable the loss does not
+    read, as GridGPR's duplicate ``kernel.*``)."""
     from gptorch_tpu_torch.module import get_trainable
 
     model.zero_grad(set_to_none=True)
     loss = model.loss()
     loss.backward()
     raws = get_trainable(model)
-    return float(loss.detach()), np.concatenate([raws[k].grad.double().cpu().numpy().ravel() for k in sorted(raws)])
+    grads = [torch.zeros_like(raws[k]) if raws[k].grad is None else raws[k].grad for k in sorted(raws)]
+    return float(loss.detach()), np.concatenate([g.double().cpu().numpy().ravel() for g in grads])
 
 
 def iterative_training_phase(torch):
@@ -3339,6 +3394,575 @@ def latent_and_vecchia_phases(torch):
     return out, seconds
 
 
+# -- the structured exact GPs: state space, Kronecker grid, SKI ------------------------
+
+
+def rel_gap(a, b):
+    """max |a − b| over max |b| (arrays or scalars)."""
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def ssgp_data(n, seed=0):
+    """bench_ssgp.py's data: x ~ U(0, 1000) sorted, y = sin(0.5x) + 0.3ε
+    (RandomState(0)), float32."""
+    rng = np.random.RandomState(seed)
+    x = np.sort(rng.uniform(0.0, 1000.0, n)).astype(np.float32)[:, None]
+    y = (np.sin(0.5 * x) + 0.3 * rng.randn(n, 1)).astype(np.float32)
+    return x, y
+
+
+def ssgp_kernel(kernels, name="matern32"):
+    """bench_ssgp.py's kernels (variance 1, ℓ = 0.5), and the s = 5 Sum."""
+    if name == "matern32+matern52":
+        return ssgp_kernel(kernels, "matern32") + ssgp_kernel(kernels, "matern52")
+    cls = {"matern12": kernels.Matern12, "matern32": kernels.Matern32, "matern52": kernels.Matern52}[name]
+    return cls(1, variance=1.0, length_scales=0.5)
+
+
+def ssgp_model(torch, n, dtype, name="matern32", device=None):
+    """StateSpaceGPR on ssgp_data(n) in ``dtype`` (the float32 data cast),
+    Gaussian(0.1); Params in ``dtype``."""
+    from gptorch_tpu_torch import kernels, likelihoods
+    from gptorch_tpu_torch.models import StateSpaceGPR
+
+    x, y = ssgp_data(n)
+    with default_dtype(torch, torch.float64 if dtype == np.float64 else torch.float32):
+        return StateSpaceGPR(x.astype(dtype), y.astype(dtype), ssgp_kernel(kernels, name),
+                             likelihood=likelihoods.Gaussian(0.1), device=device)
+
+
+def ssgp_combine_ops(s, dy):
+    """Operations of one filtering combine: nine (s, s) products, five
+    (s, s)·(s, dy) products and the element-wise rest, a fused
+    multiply-add counted as two."""
+    return 18 * s ** 3 + 10 * s * s * dy + 8 * s * s
+
+
+def ssgp_stage_bounds(n, s, dy, itemsize, dtype):
+    """Least times of the forward's stages: assemble reads x and writes A and
+    Q; the element build reads A, Q, y and writes the five elements; the
+    scan reads them and writes as many prefixes, with 2(n − 1) combines;
+    the NLML reads A, Q, y and the filtered moments; the smoother reads
+    those and writes the smoothed moments, with n − 1 combines."""
+    elem = 3 * s * s + 2 * s * dy
+    moments = s * s + s * dy
+    return {"assemble": bound_ms(n * (1 + 2 * s * s) * itemsize, n * 4 * s ** 3, dtype),
+            "elements": bound_ms(n * (2 * s * s + dy + elem) * itemsize, n * 12 * s ** 3, dtype),
+            "scan": bound_ms(2 * n * elem * itemsize, 2 * n * ssgp_combine_ops(s, dy), dtype),
+            "nlml": bound_ms(n * (2 * s * s + dy + moments) * itemsize, n * 6 * s ** 3, dtype),
+            "smoother": bound_ms(n * (2 * s * s + 2 * moments) * itemsize, n * (ssgp_combine_ops(s, dy) + 12 * s ** 3),
+                                 dtype)}
+
+
+def ssgp_value_and_grad_bound(n, s, dy, itemsize, dtype):
+    """The value-and-grad's least time: x and y read once (the gradient's
+    few entries written); the forward's combines (2(n − 1), and the
+    element build) and a backward of twice the forward's operations."""
+    return bound_ms(n * (1 + dy) * itemsize, 3 * n * (2 * ssgp_combine_ops(s, dy) + 12 * s ** 3), dtype)
+
+
+def ssgp_stages(torch, model):
+    """Warm CUDA-event times of the forward's stages (no gradient), each
+    through the function the loss calls, on the outputs of the stage before."""
+    from gptorch_tpu_torch.ops import ssm
+
+    with torch.no_grad():
+        x, resid, R, chunk = model.X[:, 0], model.Y - model.mean_function(model.X), model._noise(), model._scan_chunk
+        A, Q, H, _ = ssm.assemble_sde(model.kernel, x)
+        elems = ssm.filter_elements(A, Q, H, R, resid)
+        prefix = ssm._scan_prefix(elems, chunk)
+        means, covs = ssm._untb(prefix[1]), ssm._untb(prefix[2])
+        stages = {
+            "assemble": lambda: ssm.assemble_sde(model.kernel, x),
+            "elements": lambda: ssm.filter_elements(A, Q, H, R, resid),
+            "scan": lambda: ssm._scan_prefix(elems, chunk),
+            "nlml": lambda: ssm.filter_nlml(A, Q, H, R, resid, means, covs),
+            "smoother": lambda: ssm.parallel_smoother(A, Q, means, covs),
+        }
+        out = {name: time_ms(fn, 3) for name, fn in stages.items()}
+    del A, Q, elems, prefix, means, covs
+    return out
+
+
+def ssgp_f32_vs_f64(torch, model, n):
+    """The float32 model's NLML and gradient against the same data and
+    values in float64 on the card: (NLML relative gap, gradient gap over
+    its largest entry)."""
+    loss32, grad32 = iterative_value_and_grad(torch, model)
+    m64 = ssgp_model(torch, n, np.float64)
+    loss64, grad64 = iterative_value_and_grad(torch, m64)
+    del m64
+    torch.cuda.empty_cache()
+    return abs(loss32 - loss64) / abs(loss64), rel_gap(grad32, grad64)
+
+
+def ssgp_card_vs_cpu(torch):
+    """Float64, n = 4096: the loss and gradient on the card against the
+    CPU for each of SS_KERNELS, monolithic and chunked (SS_CHECK_CHUNK,
+    through GPTORCH_TPU_SSM_CHUNK); the worst relative gap."""
+    worst = 0.0
+    for name in SS_KERNELS:
+        for chunk in ("0", str(SS_CHECK_CHUNK)):
+            runs = []
+            os.environ["GPTORCH_TPU_SSM_CHUNK"] = chunk
+            try:
+                for device in ("cuda", "cpu"):
+                    with default_dtype(torch, torch.float64):
+                        runs.append(iterative_value_and_grad(torch, ssgp_model(torch, SS_CHECK_N, np.float64, name,
+                                                                                device=device)))
+            finally:
+                del os.environ["GPTORCH_TPU_SSM_CHUNK"]
+            gaps = (rel_gap(runs[0][0], runs[1][0]), rel_gap(runs[0][1], runs[1][1]))
+            print(f"# statespace f64 card vs CPU n={SS_CHECK_N} {name} chunk={chunk}: loss {gaps[0]:.3e}, "
+                  f"gradient {gaps[1]:.3e}", flush=True)
+            worst = max(worst, *gaps)
+    check(worst <= F64_REL_TOL, f"statespace card vs CPU: {worst}")
+    return worst
+
+
+def ssgp_vs_dense(torch):
+    """Float64 on the card, n = 2048: the state-space NLML against the dense
+    GPR's (1e-9 relative, the JAX test's limit) and their gradients."""
+    from gptorch_tpu_torch import kernels, likelihoods
+    from gptorch_tpu_torch.models import GPR
+
+    ss = ssgp_model(torch, SS_DENSE_N, np.float64)
+    with default_dtype(torch, torch.float64):
+        dense = GPR(ss.X, ss.Y, ssgp_kernel(kernels), likelihood=likelihoods.Gaussian(0.1), fast=False)
+        (ls, gs), (ld, gd) = iterative_value_and_grad(torch, ss), iterative_value_and_grad(torch, dense)
+    out = {"loss_rel": abs(ls - ld) / abs(ld), "grad_rel": rel_gap(gs, gd)}
+    print(f"# statespace f64 vs dense GPR n={SS_DENSE_N} on the card: NLML relative {out['loss_rel']:.3e} (tol 1e-9), "
+          f"gradient {out['grad_rel']:.3e} (tol 1e-6)", flush=True)
+    check(out["loss_rel"] <= 1e-9 and out["grad_rel"] <= 1e-6, f"statespace vs dense GPR: {out}")
+    return out
+
+
+def statespace_phase(torch):
+    """The state-space GP at bench_ssgp.py's cell; see the module docstring,
+    phase 20."""
+    from gptorch_tpu_torch import settings
+
+    out = {"n": SS_N, "dtype": "float32", "kernel": "matern32"}
+    model = ssgp_model(torch, SS_N, np.float32)
+    check(model.device.type == "cuda", "StateSpaceGPR did not land on the card")
+    rng = np.random.RandomState(11)
+    xq = [np.sort(rng.uniform(0.0, 1000.0, Q)).astype(np.float32)[:, None] for _ in range(BATCHES)]
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with gram_launch_shapes() as shapes:
+        iterative_value_and_grad(torch, model)
+        out["value_and_grad_ms"] = [time_ms(lambda: iterative_value_and_grad(torch, model), 1) for _ in range(2)]
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        _, out["busy_ms"], _, out["launches_per_value_and_grad"] = device_busy_ms(
+            torch, lambda: iterative_value_and_grad(torch, model))
+        out["stages_ms"] = ssgp_stages(torch, model)
+        out["f32_vs_f64"] = ssgp_f32_vs_f64(torch, model, SS_N)
+
+        t0 = time.perf_counter()
+        warm = model.fit_scan("Adam", max_iter=SS_STEPS)
+        torch.cuda.synchronize()
+        out["fit_scan_warm_s"] = time.perf_counter() - t0
+        out["launches_per_captured_step"] = check_captured("statespace training")
+        t0 = time.perf_counter()
+        losses = model.fit_scan("Adam", max_iter=SS_STEPS)
+        torch.cuda.synchronize()
+        out["fit_scan_step_ms"] = 1e3 * (time.perf_counter() - t0) / SS_STEPS
+        replayed = replayed_launches()
+        out["losses"] = [float(v) for v in torch.cat([warm, losses]).cpu()]
+        out["predict_f_ms"], moments = [], []
+        for xb in xq:
+            t0 = time.perf_counter()
+            moments.append(model.predict_f(xb))
+            out["predict_f_ms"].append(1e3 * (time.perf_counter() - t0))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t0 = time.perf_counter()
+        draws = model.predict_f_samples(xq[0], SS_SAMPLES, generator=gen)
+        out["samples_ms"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        f_mean, f_var = model.filter_moments()
+        torch.cuda.synchronize()
+        out["filter_moments_ms"] = 1e3 * (time.perf_counter() - t0)
+        moment_draws = model.predict_f_samples(xq[0], SS_MOMENT_SAMPLES, generator=gen)
+        out["launches"] = add_counts(read_counts(), replayed)
+    out["rbf_gram_shapes"] = shapes
+    out["peak_mem_gb"] = max(out["peak_mem_gb"], torch.cuda.max_memory_allocated() / 1e9)
+    mean0, var0 = moments[0]
+    out["sample_moments"] = sample_moments(moment_draws, mean0, var0, "statespace")
+    s = 2
+    vg_bound = ssgp_value_and_grad_bound(SS_N, s, 1, 4, "float32")
+    stage_bounds = ssgp_stage_bounds(SS_N, s, 1, 4, "float32")
+    out["value_and_grad_bound"] = vg_bound
+    out["stage_bounds"] = stage_bounds
+    vg_ms = ", ".join(f"{t:.2f}" for t in out["value_and_grad_ms"])
+    print(f"# statespace n={SS_N} matern32 f32: value-and-grad {vg_ms} ms "
+          f"(bound {vg_bound[0]:.4f} ms, {vg_bound[1]}; {out['launches_per_value_and_grad']} device launches, busy "
+          f"{out['busy_ms']:.2f} ms); fit_scan Adam (captured, launches recorded per captured step "
+          f"{out['launches_per_captured_step']}) warm call of {SS_STEPS} steps {out['fit_scan_warm_s']:.2f} s, timed "
+          f"{out['fit_scan_step_ms']:.3f} ms/step; predict_f per batch of {Q} median "
+          f"{np.median(out['predict_f_ms']):.2f} ms; predict_f_samples({SS_SAMPLES}) over {Q} "
+          f"{out['samples_ms']:.2f} ms; "
+          f"filter_moments {out['filter_moments_ms']:.2f} ms; peak {out['peak_mem_gb']:.3f} GB; NLML f32 vs f64 "
+          f"relative {out['f32_vs_f64'][0]:.3e} (tol {SS_F32_TOL[SS_N]['nlml']}), gradient {out['f32_vs_f64'][1]:.3e} "
+          f"(tol {SS_F32_TOL[SS_N]['grad']})", flush=True)
+    for key, ms in out["stages_ms"].items():
+        print(f"# statespace stage {key}: {ms:.3f} ms (bound {stage_bounds[key][0]:.5f} ms, {stage_bounds[key][1]})",
+              flush=True)
+    check(all(math.isfinite(v) for v in out["losses"]), "non-finite state-space loss")
+    check(out["losses"][-1] < out["losses"][0], "state-space training did not lower the loss")
+    check(out["f32_vs_f64"][0] <= SS_F32_TOL[SS_N]["nlml"] and out["f32_vs_f64"][1] <= SS_F32_TOL[SS_N]["grad"],
+          f"statespace f32 vs f64 at n={SS_N}: {out['f32_vs_f64']}")
+    mu = np.concatenate([m for m, _ in moments])
+    var = np.concatenate([v for _, v in moments])
+    check(mu.shape == (Q * BATCHES, 1) and np.isfinite(mu).all() and (var >= 0).all(), "statespace predict_f")
+    check(draws.shape == (SS_SAMPLES, Q, 1) and np.isfinite(draws).all(), "statespace predict_f_samples")
+    check(bool(torch.isfinite(f_mean).all()) and bool((f_var >= 0).all()), "statespace filter_moments")
+    del model, draws, moment_draws, f_mean, f_var
+    torch.cuda.empty_cache()
+
+    long = ssgp_model(torch, SS_N_LONG, np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    iterative_value_and_grad(torch, long)
+    out["long"] = {"n": SS_N_LONG, "chunk": long._scan_chunk,
+                   "value_and_grad_ms": time_ms(lambda: iterative_value_and_grad(torch, long), 1),
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "bound": ssgp_value_and_grad_bound(SS_N_LONG, s, 1, 4, "float32")}
+    _, out["long"]["busy_ms"], _, out["long"]["launches_per_value_and_grad"] = device_busy_ms(
+        torch, lambda: iterative_value_and_grad(torch, long))
+    out["long"]["f32_vs_f64"] = ssgp_f32_vs_f64(torch, long, SS_N_LONG)
+    lg = out["long"]
+    print(f"# statespace n={SS_N_LONG} (chunk {lg['chunk']}) f32: value-and-grad {lg['value_and_grad_ms']:.2f} ms "
+          f"(bound "
+          f"{lg['bound'][0]:.4f} ms, {lg['bound'][1]}; {lg['launches_per_value_and_grad']} device launches, busy "
+          f"{lg['busy_ms']:.2f} ms); peak {lg['peak_mem_gb']:.3f} GB; NLML f32 vs f64 relative "
+          f"{lg['f32_vs_f64'][0]:.3e} "
+          f"(tol {SS_F32_TOL[SS_N_LONG]['nlml']}), gradient {lg['f32_vs_f64'][1]:.3e} (tol "
+          f"{SS_F32_TOL[SS_N_LONG]['grad']})", flush=True)
+    check(lg["f32_vs_f64"][0] <= SS_F32_TOL[SS_N_LONG]["nlml"] and lg["f32_vs_f64"][1] <= SS_F32_TOL[SS_N_LONG]["grad"],
+          f"statespace f32 vs f64 at n={SS_N_LONG}: {lg['f32_vs_f64']}")
+    del long
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = ssgp_card_vs_cpu(torch)
+    out["vs_dense"] = ssgp_vs_dense(torch)
+    return out
+
+
+def grid_data(sizes, seed=0):
+    """Axes on [0, 10] with the given sizes and y = sin(x₀)·cos(x₁) +
+    0.05·x₂ + 0.1ε on the grid (RandomState(seed)), float64."""
+    from gptorch_tpu_torch.models.kronecker import grid_points
+
+    rng = np.random.RandomState(seed)
+    axes = [np.linspace(0.0, 10.0, n) for n in sizes]
+    x = grid_points(axes)
+    y = np.sin(x[:, :1]) * np.cos(x[:, 1:2]) + 0.05 * x[:, 2:3] + 0.1 * rng.randn(x.shape[0], 1)
+    return axes, y
+
+
+def grid_model(torch, sizes, dtype, device=None):
+    """GridGPR with Rbf(1) per axis and Gaussian(0.1), Params in ``dtype``."""
+    from gptorch_tpu_torch import kernels, likelihoods
+    from gptorch_tpu_torch.models import GridGPR
+
+    axes, y = grid_data(sizes)
+    with default_dtype(torch, torch.float64 if dtype == np.float64 else torch.float32):
+        return GridGPR(axes, y.astype(dtype), [kernels.Rbf(1) for _ in sizes], likelihood=likelihoods.Gaussian(0.1),
+                       device=device)
+
+
+def grid_bounds(n, D, dy, itemsize, dtype):
+    """Least times: the value-and-grad reads y once and does D mode products
+    of 2·n·N operations each forward (three times that with the backward);
+    one eigh of an (n, n) axis Gram (~9n³ operations); 8·256 queries each
+    read the alpha grid once."""
+    N = n ** D
+    return {"value_and_grad": bound_ms(N * dy * itemsize, 3 * D * 2 * n * N * dy, dtype),
+            "eigh": bound_ms(2 * n * n * itemsize, 9 * n ** 3, dtype),
+            "mode_products": bound_ms(2 * N * dy * itemsize, D * 2 * n * N * dy, dtype),
+            "predict_batch": bound_ms(N * dy * itemsize, 2 * Q * N * dy, dtype)}
+
+
+def kronecker_phase(torch):
+    """The Kronecker grid GP; see the module docstring, phase 21."""
+    sizes = (KR_SIZE,) * 3
+    out = {"grid": sizes, "dtype": "float32"}
+    model = grid_model(torch, sizes, np.float32)
+    check(model.device.type == "cuda", "GridGPR did not land on the card")
+    rng = np.random.RandomState(12)
+    xq = [rng.uniform(0.0, 10.0, (Q, 3)).astype(np.float32) for _ in range(BATCHES)]
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with gram_launch_shapes() as shapes:
+        loss32, grad32 = iterative_value_and_grad(torch, model)
+        out["value_and_grad_ms"] = time_ms(lambda: iterative_value_and_grad(torch, model), 3)
+        _, out["busy_ms"], _, out["launches_per_value_and_grad"] = device_busy_ms(
+            torch, lambda: iterative_value_and_grad(torch, model))
+        with torch.no_grad():
+            lams, qs = model._eigs()
+            yt = model.Y.reshape(model.grid_sizes + (1,))
+            out["stages_ms"] = {"eigh x3 (with K1)": time_ms(model._eigs, 3),
+                                "mode_products": time_ms(lambda: model._mode_products(yt, [q.T for q in qs]), 3)}
+        t0 = time.perf_counter()
+        losses = model.fit_scan("Adam", max_iter=KR_STEPS)
+        torch.cuda.synchronize()
+        out["fit_scan_step_ms"] = 1e3 * (time.perf_counter() - t0) / KR_STEPS
+        from gptorch_tpu_torch.training import fit
+
+        check(not fit.fit_scan.last_run["captured"], "GridGPR's fit_scan was captured (eigh reads the host)")
+        out["losses"] = [float(v) for v in losses.cpu()]
+        t0 = time.perf_counter()
+        post = model.posterior()
+        torch.cuda.synchronize()
+        out["posterior_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["predict_f_ms"], moments = [], []
+        for xb in xq:
+            t0 = time.perf_counter()
+            moments.append(post.predict_f(xb))
+            out["predict_f_ms"].append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        full_mean, full_cov = post.predict_f(xq[0][:KR_FULL_QUERIES], diag=False)
+        out["predict_full_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["launches"] = read_counts()
+    out["rbf_gram_shapes"] = shapes
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    bounds = grid_bounds(KR_SIZE, 3, 1, 4, "float32")
+    out["bounds"] = bounds
+    print(f"# kronecker grid {KR_SIZE}^3 (N = {KR_SIZE ** 3}) Rbf(1) per axis f32: value-and-grad "
+          f"{out['value_and_grad_ms']:.3f} ms (bound {bounds['value_and_grad'][0]:.4f} ms, "
+          f"{bounds['value_and_grad'][1]}; {out['launches_per_value_and_grad']} device launches, busy "
+          f"{out['busy_ms']:.3f} ms); stages {', '.join(f'{k} {v:.3f} ms' for k, v in out['stages_ms'].items())} (one "
+          f"eigh's bound {bounds['eigh'][0]:.5f} ms, the mode products' {bounds['mode_products'][0]:.4f} ms); fit_scan "
+          f"Adam (eager) {out['fit_scan_step_ms']:.2f} ms/step; posterior() {out['posterior_ms']:.2f} ms; "
+          f"predict_f per "
+          f"batch of {Q} median {np.median(out['predict_f_ms']):.3f} ms (bound {bounds['predict_batch'][0]:.4f} ms); "
+          f"diag=False at {KR_FULL_QUERIES} {out['predict_full_ms']:.2f} ms; peak {out['peak_mem_gb']:.3f} GB; "
+          f"launches "
+          f"{out['launches']}", flush=True)
+    mu = np.concatenate([m for m, _ in moments])
+    var = np.concatenate([v for _, v in moments])
+    check(np.isfinite(loss32) and np.isfinite(grad32).all() and all(math.isfinite(v) for v in out["losses"]),
+          "non-finite grid GP loss")
+    check(out["losses"][-1] < out["losses"][0], "grid GP training did not lower the loss")
+    check(mu.shape == (Q * BATCHES, 1) and np.isfinite(mu).all() and (var >= 0).all(), "grid GP predict_f")
+    check(full_cov.shape == (KR_FULL_QUERIES, KR_FULL_QUERIES) and np.isfinite(full_cov).all(),
+          "grid GP full covariance")
+    check(out["launches"]["rbf_gram"] > 0, "the Kronecker path never launched rbf_gram")
+    del model, post
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = kronecker_card_vs_cpu(torch)
+    return out
+
+
+def kronecker_card_vs_cpu(torch):
+    """Float64 on a 16 × 12 × 10 grid: the card's loss, gradient and
+    predict_f (diagonal and full) against the CPU's, and the card's against
+    the dense GPR with the product kernel (each Rbf on its column), all to
+    F64_REL_TOL."""
+    from gptorch_tpu_torch import kernels, likelihoods
+    from gptorch_tpu_torch.models import GPR
+    from gptorch_tpu_torch.models.kronecker import grid_points
+
+    xq = np.random.RandomState(13).uniform(0.0, 10.0, (32, 3))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = grid_model(torch, KR_CHECK_SIZES, np.float64, device=device)
+        with default_dtype(torch, torch.float64):
+            loss, grad = iterative_value_and_grad(torch, model)
+            runs[device] = (np.array([loss]), grad, *model.predict_f(xq), *model.predict_f(xq[:8], diag=False))
+    rels = [rel_gap(a, b) for a, b in zip(runs["cuda"], runs["cpu"])]
+    axes, y = grid_data(KR_CHECK_SIZES)
+    with default_dtype(torch, torch.float64):
+        product = (kernels.ActiveDims(kernels.Rbf(1), [0], 3) * kernels.ActiveDims(kernels.Rbf(1), [1], 3)
+                   * kernels.ActiveDims(kernels.Rbf(1), [2], 3))
+        dense = GPR(grid_points(axes), y, product, likelihood=likelihoods.Gaussian(0.1), fast=False)
+        ld, _ = iterative_value_and_grad(torch, dense)
+        dense_moments = dense.predict_f(xq)
+    vs_dense = [abs(runs["cuda"][0][0] - ld) / abs(ld)] + [rel_gap(a, b) for a, b in zip(runs["cuda"][2:4],
+                                                                                          dense_moments)]
+    print(f"# kronecker f64 grid {KR_CHECK_SIZES}: card vs CPU max relative gaps loss {rels[0]:.3e}, gradient "
+          f"{rels[1]:.3e}, predict_f mean {rels[2]:.3e}, var {rels[3]:.3e}, full mean {rels[4]:.3e}, cov "
+          f"{rels[5]:.3e}; "
+          f"card vs dense GPR (product kernel): loss {vs_dense[0]:.3e}, mean {vs_dense[1]:.3e}, var {vs_dense[2]:.3e} "
+          f"(tol {F64_REL_TOL})", flush=True)
+    check(max(rels) <= F64_REL_TOL and max(vs_dense) <= F64_REL_TOL, f"Kronecker f64 checks: {rels}, {vs_dense}")
+    return {"card_vs_cpu": rels, "vs_dense": vs_dense}
+
+
+def ski_data(n, nt, seed=0, noise=0.1):
+    """bench_calibration.make_data's 3-D recipe: x ~ U(−1, 1)³,
+    f = sin(2x₀) + cos(3x₁) + 0.5x₂², y = f + noise·ε, a random split into
+    n training points (sorted indices) and nt test points."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-1.0, 1.0, (n + nt, 3))
+    f = np.sin(2.0 * x[:, :1]) + np.cos(3.0 * x[:, 1:2]) + 0.5 * x[:, 2:3] ** 2
+    y = f + noise * rng.randn(*f.shape)
+    idx = rng.permutation(n + nt)
+    tr, te = np.sort(idx[:n]), idx[n:]
+    return x[tr], y[tr], x[te], y[te]
+
+
+def ski_model(torch, n, dtype, device=None, noise=0.01, **kw):
+    """bench_calibration.py's 3-D SKI row: Matern32(1, ℓ = 0.5) per axis,
+    grid 16³, Gaussian(noise), the SKIGPR defaults unless ``kw`` says
+    otherwise; (model, test inputs)."""
+    from gptorch_tpu_torch import kernels, likelihoods
+    from gptorch_tpu_torch.models import SKIGPR
+
+    x, y, xt, _ = ski_data(n, Q * BATCHES)
+    with default_dtype(torch, torch.float64 if dtype == np.float64 else torch.float32):
+        model = SKIGPR(x.astype(dtype), y.astype(dtype), [kernels.Matern32(1, length_scales=0.5) for _ in range(3)],
+                       grid_shape=SKI_GRID, likelihood=likelihoods.Gaussian(noise), device=device, **kw)
+    return model, xt.astype(dtype)
+
+
+def ski_bounds(n, G, k, t, steps, itemsize, dtype):
+    """Least times: Wᵀ and W each read the stencil (k entries a row: an
+    int64 index and a weight) and the n·t values once and write their
+    output once; the Toeplitz FFTs read and write the (G, t) grid (and
+    15·G·log₂(2g)·t operations for three axes of real FFTs); the product is
+    the three; an mBCG step is one product and ~10 passes over (n, t)
+    vectors; SLQ's eigh of (t, steps, steps) about 9·steps³ operations a
+    matrix; the value-and-grad is mBCG, SLQ and four more products."""
+    stencil = n * k * (8 + itemsize)
+    interp = bound_ms(stencil + (n + G) * t * itemsize, 2 * n * k * t, dtype)
+    fft = bound_ms(2 * G * t * itemsize, 15 * G * math.log2(2 * round(G ** (1 / 3))) * t, dtype)
+    product = (2 * interp[0] + fft[0], interp[1])
+    step = bound_ms(2 * stencil + 10 * n * t * itemsize, 4 * n * k * t + 10 * n * t, dtype)
+    slq = bound_ms(t * steps * steps * itemsize, 9 * t * steps ** 3, dtype)
+    return {"scatter (W^T)": interp, "toeplitz fft": fft, "gather (W)": interp, "product": product,
+            "mbcg": (steps * step[0], step[1]), "slq": slq,
+            "value_and_grad": (steps * step[0] + slq[0] + 4 * product[0], step[1])}
+
+
+def ski_stages(torch, model):
+    """Warm CUDA-event times of one (W K_g Wᵀ + σ²I) product on the
+    mBCG's (n, 1 + probes) block split into Wᵀ, the Toeplitz FFTs and W;
+    the mBCG of the loss; the SLQ on its coefficients."""
+    from gptorch_tpu_torch.ops import iterative, ski
+
+    with torch.no_grad():
+        rows, noise = model._rows(), model._noise()
+        B = torch.cat([model.Y, model.probes], 1)
+        u = ski.interp_rmatvec(model._train_idx, model._train_w, B, model.num_grid, plan=model._plan)
+        g = ski.kron_toeplitz_matvec(rows, u, model.grid_shape)
+        _, alphas, betas, valid = model._cg(rows, noise, B)
+        sq = torch.sum(model.probes * model.probes, dim=0)
+        stages = {
+            "scatter (W^T)": (lambda: ski.interp_rmatvec(model._train_idx, model._train_w, B, model.num_grid,
+                                                         plan=model._plan), 5),
+            "toeplitz fft": (lambda: ski.kron_toeplitz_matvec(rows, u, model.grid_shape), 5),
+            "gather (W)": (lambda: ski.interp_matvec(model._train_idx, model._train_w, g), 5),
+            "product": (lambda: model._mvm(rows, noise, B), 5),
+            "mbcg": (lambda: model._cg(rows, noise, B), 1),
+            "slq": (lambda: iterative.lanczos_logdet_quadratic(alphas[:, 1:], betas[:, 1:], valid[:, 1:], sq,
+                                                               model.X.shape[0]), 3),
+        }
+        out = {name: time_ms(fn, reps) for name, (fn, reps) in stages.items()}
+        out["cg_steps_used"] = int(valid.sum(0).max())
+    return out
+
+
+def ski_phase(torch):
+    """SKI at bench_calibration.py's 3-D row; see the module docstring,
+    phase 22."""
+    from gptorch_tpu_torch.module import get_trainable
+    from gptorch_tpu_torch.training import fit
+
+    model, xt = ski_model(torch, SKI_N, np.float32)
+    check(model.device.type == "cuda", "SKIGPR did not land on the card")
+    out = {"n": SKI_N, "grid": model.grid_shape, "dtype": "float32", "probes": model.num_probes,
+           "cg_steps": model.max_cg_iters}
+    xq = [xt[i * Q:(i + 1) * Q] for i in range(BATCHES)]
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with gram_launch_shapes() as shapes:
+        first = iterative_value_and_grad(torch, model)
+        second = iterative_value_and_grad(torch, model)
+        out["bitwise_equal"] = first[0] == second[0] and np.array_equal(first[1], second[1])
+        out["value_and_grad_ms"] = time_ms(lambda: iterative_value_and_grad(torch, model), 1)
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        _, out["busy_ms"], _, out["launches_per_value_and_grad"] = device_busy_ms(
+            torch, lambda: iterative_value_and_grad(torch, model))
+        out["stages_ms"] = ski_stages(torch, model)
+        t0 = time.perf_counter()
+        post = model.posterior()
+        torch.cuda.synchronize()
+        out["posterior_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["predict_mean_ms"], means = [], []
+        for xb in xq:
+            t0 = time.perf_counter()
+            means.append(post.predict_mean(xb))
+            out["predict_mean_ms"].append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        f_mean, f_var = post.predict_f(xq[0][:SKI_CG_QUERIES])
+        out["predict_f_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["launches"] = read_counts()
+    out["rbf_gram_shapes"] = shapes
+    out["peak_mem_gb"] = max(out["peak_mem_gb"], torch.cuda.max_memory_allocated() / 1e9)
+    t = 1 + model.num_probes
+    bounds = ski_bounds(SKI_N, model.num_grid, 4 ** 3, t, model.max_cg_iters, 4, "float32")
+    out["bounds"] = bounds
+    print(f"# ski n={SKI_N} grid {SKI_GRID}^3 f32 ({model.num_probes} probes, {model.max_cg_iters} CG steps, tol "
+          f"{model.cg_tol}): value-and-grad {out['value_and_grad_ms']:.2f} ms (bound "
+          f"{bounds['value_and_grad'][0]:.3f} ms, {bounds['value_and_grad'][1]}; {out['launches_per_value_and_grad']} "
+          f"device launches, busy {out['busy_ms']:.2f} ms); two value-and-grads bitwise equal: {out['bitwise_equal']}; "
+          f"posterior() {out['posterior_ms']:.2f} ms; predict_mean per batch of {Q} median "
+          f"{np.median(out['predict_mean_ms']):.3f} ms; predict_f of {SKI_CG_QUERIES} (CG) "
+          f"{out['predict_f_ms']:.2f} ms; "
+          f"peak {out['peak_mem_gb']:.3f} GB; launches {out['launches']}", flush=True)
+    for key, ms in out["stages_ms"].items():
+        if key != "cg_steps_used":
+            print(f"# ski stage {key}: {ms:.3f} ms (bound {bounds[key][0]:.4f} ms, {bounds[key][1]})", flush=True)
+    print(f"# ski mbcg steps used by the slowest column: {out['stages_ms']['cg_steps_used']} of {model.max_cg_iters}",
+          flush=True)
+    check(out["bitwise_equal"], "SKI: two identical value-and-grads differ")
+    check(math.isfinite(first[0]) and np.isfinite(first[1]).all(), "non-finite SKI loss")
+    mu = np.concatenate(means)
+    check(mu.shape == (Q * BATCHES, 1) and np.isfinite(mu).all(), "SKI predict_mean")
+    check(np.isfinite(f_mean).all() and (f_var >= 0).all(), "SKI predict_f")
+    check(rel_gap(post.predict_mean(xq[0][:SKI_CG_QUERIES]), f_mean) <= 1e-5, "SKI predict_mean vs predict_f")
+    check(not fit.captures(model, "Adam") and len(get_trainable(model)) == 7, "SKI capture rule or trainables")
+    del model, post
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = ski_card_vs_cpu(torch)
+    return out
+
+
+def ski_card_vs_cpu(torch):
+    """Float64 at n = 2048 with noise 0.1 and CG to SKI_CHECK_TOL (every
+    column converges in under SKI_CHECK_ITERS steps, so the two routes'
+    solves agree whichever step each stops on): loss, gradient and
+    predict_f of 16, card against CPU, to F64_REL_TOL."""
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model, xt = ski_model(torch, SKI_CHECK_N, np.float64, device=device, noise=0.1, cg_tol=SKI_CHECK_TOL,
+                              max_cg_iters=SKI_CHECK_ITERS)
+        with default_dtype(torch, torch.float64):
+            loss, grad = iterative_value_and_grad(torch, model)
+            runs[device] = (np.array([loss]), grad, *model.predict_f(xt[:SKI_CG_QUERIES]))
+    rels = [rel_gap(a, b) for a, b in zip(runs["cuda"], runs["cpu"])]
+    print(f"# ski f64 card vs CPU n={SKI_CHECK_N}: max relative gaps loss {rels[0]:.3e}, gradient {rels[1]:.3e}, "
+          f"predict_f mean {rels[2]:.3e}, var {rels[3]:.3e} (tol {F64_REL_TOL})", flush=True)
+    check(max(rels) <= F64_REL_TOL, f"SKI card vs CPU: {rels}")
+    return rels
+
+
+def structured_phases(torch):
+    """The state-space, Kronecker and SKI paths, each driven with the launch
+    counts set to 0 just before it and read just after, and K1's shapes on
+    them checked against gram_phase's cases; returns their results and the
+    seconds they took together."""
+    t0 = time.perf_counter()
+    out = {"statespace": statespace_phase(torch), "kronecker": kronecker_phase(torch), "ski": ski_phase(torch)}
+    check_gram_coverage(set().union(*(result["rbf_gram_shapes"] for result in out.values())))
+    seconds = time.perf_counter() - t0
+    print(f"# statespace, kronecker and ski phases: {seconds:.1f} s together", flush=True)
+    return out, seconds
+
+
 def build_kernels():
     """Builds the four kernel sources of the package on ``sys.path`` (one
     nvcc each, all started together) and loads them: (seconds, (gram,
@@ -3461,6 +4085,7 @@ def main() -> int:
     finally:
         stop_process(reference[0])
     latent, latent_s = latent_and_vecchia_phases(torch)
+    structured, structured_s = structured_phases(torch)
 
     paths = {"serving": serving["launches"], "training": training["launches"],
              "general_training": general_training["launches"], "observe_loop": observe_loop["launches"],
@@ -3469,7 +4094,8 @@ def main() -> int:
              "dkl_studentt_svgp": dkl["launches"], "zoo_grams": zoo_grams["launches"],
              "zoo_training": zoo_training["launches"], "iterative_training": iterative_training["launches"],
              "iterative_serving": iterative_serving["launches"],
-             **{name: result["launches"] for name, result in latent.items()}}
+             **{name: result["launches"] for name, result in latent.items()},
+             **{name: result["launches"] for name, result in structured.items()}}
     g, c = gram_rows[0], contract_rows[0]
     m9, lr = mvm_rows["timed"][9], lowrank_rows["timed"][IT_PROBES + 1]
     kernels_line = {"kernels": [
@@ -3554,7 +4180,10 @@ def main() -> int:
           f"{zoo_training['peak_mem_gb']:.1f} GB, iterative training {iterative_training['peak_mem_gb']:.3f} GB, "
           f"gplvm {latent['gplvm']['peak_mem_gb']:.3f} GB, uncertain prediction "
           f"{latent['uncertain_prediction']['peak_mem_gb']:.2f} GB, vecchia {latent['vecchia']['peak_mem_gb']:.2f} "
-          f"GB (their phases {latent_s:.1f} s); "
+          f"GB (their phases {latent_s:.1f} s), statespace {structured['statespace']['peak_mem_gb']:.3f} GB (n = "
+          f"{SS_N_LONG}: {structured['statespace']['long']['peak_mem_gb']:.3f} GB), kronecker "
+          f"{structured['kronecker']['peak_mem_gb']:.3f} GB, ski {structured['ski']['peak_mem_gb']:.3f} GB (their "
+          f"phases {structured_s:.1f} s); "
           f"launches count each captured step's recorded launches once per "
           f"replay; total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels_line), flush=True)

@@ -1,9 +1,11 @@
 from .base import GPModel
 from .gplvm import GPLVM
 from .gpr import GPR
+from .kronecker import GridGPR
 from .posterior import (
     FantasyGPRChain,
     GPRPosterior,
+    GridGPRPosterior,
     IterativeGPRPosterior,
     LowRankPosterior,
     Posterior,
@@ -18,7 +20,9 @@ from .posterior import (
     svgp_posterior,
     vfe_posterior,
 )
+from .ski import SKIGPR, SKIPosterior
 from .sparse_gpr import FITC, SVGP, VFE
+from .statespace import StateSpaceGPR
 from .vecchia import VecchiaGPR
 
 __all__ = [
@@ -28,14 +32,19 @@ __all__ = [
     "GPModel",
     "GPR",
     "GPRPosterior",
+    "GridGPR",
+    "GridGPRPosterior",
     "IterativeGPRPosterior",
     "LowRankPosterior",
     "Posterior",
+    "SKIGPR",
+    "SKIPosterior",
     "SVGP",
     "SVGPPosterior",
     "ServingGPRPosterior",
     "ServingLowRankPosterior",
     "ServingSVGPPosterior",
+    "StateSpaceGPR",
     "VFE",
     "VecchiaGPR",
     "fitc_posterior",

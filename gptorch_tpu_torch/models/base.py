@@ -31,15 +31,16 @@ from ..util import as_array
 def _coerce_io(predict_func):
     """numpy in -> numpy out; tensor in -> tensor out.
 
-    A numpy input is cast to the dtype and device of the training inputs
-    (a sparse posterior's inducing points) and run under
-    ``torch.no_grad()``: its numpy output carries no graph anyway."""
+    A numpy input is cast to the dtype and device of
+    ``self._input_reference()`` (the training inputs; a sparse posterior's
+    inducing points) and run under ``torch.no_grad()``: its numpy output
+    carries no graph anyway."""
 
     @functools.wraps(predict_func)
     def predict(self, input_new, *args, **kwargs):
         if not isinstance(input_new, np.ndarray):
             return predict_func(self, input_new, *args, **kwargs)
-        ref = self.X if hasattr(self, "X") else self.Z
+        ref = self._input_reference()
         input_new = as_array(input_new, dtype=ref.dtype, device=ref.device)
         with torch.no_grad():
             out = predict_func(self, input_new, *args, **kwargs)
@@ -57,6 +58,10 @@ class Predictive(Module):
 
     def _predict(self, x_new, diag=True):
         raise NotImplementedError
+
+    def _input_reference(self) -> torch.Tensor:
+        """A tensor whose dtype and device numpy inputs are cast to."""
+        return self.X if hasattr(self, "X") else self.Z
 
     def _predict_y(self, x_new, diag=True):
         mean_f, cov_f = self._predict(x_new, diag=diag)

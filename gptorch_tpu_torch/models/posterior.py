@@ -623,3 +623,31 @@ def gplvm_posterior(model) -> LowRankPosterior:
     latent space (no mean function: the GPLVM's is zero)."""
     L, LB, c = model._posterior()
     return LowRankPosterior(model.kernel, model.likelihood, None, model.Z.value.detach().clone(), L, LB, c)
+
+
+class GridGPRPosterior(Posterior):
+    """Cached Kronecker-GP posterior: the per-axis eigenvectors and the alpha
+    grid are computed once; each predict is O(nt·Σn_d + nt·N)."""
+
+    def __init__(self, kernels, likelihood, axes, alpha, qs, lam):
+        super().__init__(None, likelihood, None)
+        self.n_axes = len(kernels)
+        for d, (k, a, q) in enumerate(zip(kernels, axes, qs)):
+            setattr(self, f"kern{d}", _frozen(k))
+            setattr(self, f"axis{d}", a)
+            setattr(self, f"q{d}", q)
+        self.alpha = alpha  # grid-shaped (n_1, ..., n_D, dy)
+        self.lam = lam  # (N,) Kronecker eigenvalues
+
+    def _input_reference(self):
+        return self.axis0
+
+    def _pieces(self):
+        return tuple([getattr(self, f"{name}{d}") for d in range(self.n_axes)] for name in ("kern", "axis", "q"))
+
+    def _predict(self, x_new, diag=True):
+        from .kronecker import grid_predict
+
+        ks, axs, qs = self._pieces()
+        sigma2 = self.likelihood.variance.value.reshape(())
+        return grid_predict(ks, axs, qs, self.alpha, self.lam, sigma2, x_new, diag)

@@ -13,6 +13,9 @@ and the blocked factorizations and fused NLMLs built on them.
 * :mod:`gpr_general` -- the fused NLML for any kernel.
 * :mod:`iterative`   -- the matrix-free exact GP (mBCG, SLQ, pivoted
   Cholesky, LOVE) on K3 and K4.
+* :mod:`vecchia`, :mod:`ssm`, :mod:`ski` -- the Vecchia conditionals, the
+  state-space GP's parallel Kalman scans and SKI's interpolation and
+  Toeplitz products (torch ops, no hand kernel).
 
 :func:`launch_counts` reads the kernels' launch counters and
 :func:`reset_launch_counts` sets them to 0.

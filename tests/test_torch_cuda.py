@@ -960,3 +960,129 @@ def test_predict_uncertain_card_matches_cpu(cuda, cov):
             assert gram.rbf_gram.launches > before
             for got, want in zip(card, make("cpu").predict_uncertain(xq, xv)):
                 np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9 * np.abs(want).max())
+
+
+def _ssgp(device, n=3000, kernel="sum"):
+    from gptorch_tpu_torch.models import StateSpaceGPR
+
+    rng = np.random.RandomState(3)
+    x = rng.uniform(0.0, 100.0, (n, 1))
+    y = np.sin(0.5 * x) + 0.3 * rng.randn(n, 1)
+    kern = kernels.Matern32(1, length_scales=0.5) + kernels.Matern52(1) if kernel == "sum" else kernels.Matern32(1)
+    return StateSpaceGPR(x, y, kern, likelihood=likelihoods.Gaussian(0.1), device=device)
+
+
+@pytest.mark.parametrize("chunk", ["0", "512"])
+def test_statespace_chunked_scan_card_matches_cpu(cuda, chunk, monkeypatch):
+    """The state-space NLML and gradient in float64 (Matern32 + Matern52,
+    s = 5: the batched-inverse combine), monolithic and in chunks of 512
+    (the three-phase scan): the card against the CPU, 1e-10."""
+    monkeypatch.setenv("GPTORCH_TPU_SSM_CHUNK", chunk)
+    out = {}
+    with _float64():
+        for device in ("cuda", "cpu"):
+            model = _ssgp(device)
+            loss = model.loss()
+            loss.backward()
+            out[device] = (float(loss.detach()), {k: v.grad.cpu() for k, v in get_trainable(model).items()})
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-10)
+    scale = max(float(g.abs().max()) for g in out["cpu"][1].values())
+    for k, g in out["cuda"][1].items():
+        torch.testing.assert_close(g, out["cpu"][1][k], rtol=0, atol=1e-10 * scale)
+
+
+def test_statespace_fit_scan_captures_and_matches_eager(cuda):
+    """A state-space step holds no host read (closed-form inverses), so
+    fit_scan captures it; the captured losses follow the eager loop's in
+    float64."""
+    with _float64():
+        (l0, v0, _, _, _), (l1, v1, _, run, _) = _captured_and_eager(lambda: _ssgp("cuda", kernel="m32"), "Adam", 5,
+                                                                     1e-2)
+    assert run["captured"]
+    torch.testing.assert_close(l1, l0, rtol=1e-10, atol=0)
+    for k in v0:
+        torch.testing.assert_close(v1[k], v0[k], rtol=1e-9, atol=1e-12)
+
+
+def _ski(device, n=4000):
+    from gptorch_tpu_torch.models import SKIGPR
+
+    rng = np.random.RandomState(4)
+    x = rng.uniform(-1.0, 1.0, (n, 3))
+    y = np.sin(2.0 * x[:, :1]) + np.cos(3.0 * x[:, 1:2]) + 0.1 * rng.randn(n, 1)
+    return SKIGPR(x, y, [kernels.Matern32(1, length_scales=0.5) for _ in range(3)], grid_shape=12,
+                  likelihood=likelihoods.Gaussian(0.01), max_cg_iters=64, device=device)
+
+
+def test_ski_value_and_grad_is_bitwise_repeatable(cuda):
+    """Wᵀ sums each grid node's entries in a fixed order, so two identical
+    float32 value-and-grads on the card give the same bits, and a
+    posterior's means repeat too."""
+    model = _ski("cuda")
+    runs = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        loss = model.loss()
+        loss.backward()
+        runs.append((loss.detach().clone(), [p.grad.clone() for p in get_trainable(model).values()]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
+    xq = np.random.RandomState(5).uniform(-0.9, 0.9, (64, 3)).astype(np.float32)
+    np.testing.assert_array_equal(model.posterior().predict_mean(xq), model.posterior().predict_mean(xq))
+
+
+def test_ski_card_matches_cpu(cuda):
+    """float64, CG to 1e-11 (converged): loss, gradient and predict_f of 8
+    on the card against the CPU, 1e-8."""
+    from gptorch_tpu_torch.models import SKIGPR
+
+    rng = np.random.RandomState(6)
+    x = rng.uniform(-1.0, 1.0, (600, 2))
+    y = np.sin(2.0 * x[:, :1]) + 0.1 * rng.randn(600, 1)
+    xq = rng.uniform(-0.9, 0.9, (8, 2))
+    out = {}
+    with _float64():
+        for device in ("cuda", "cpu"):
+            model = SKIGPR(x, y, [kernels.Matern32(1, length_scales=0.5), kernels.Rbf(1)], grid_shape=20,
+                           likelihood=likelihoods.Gaussian(0.1), cg_tol=1e-11, max_cg_iters=300, device=device)
+            loss = model.loss()
+            loss.backward()
+            out[device] = (float(loss.detach()), [p.grad.cpu() for p in get_trainable(model).values()],
+                           model.predict_f(xq))
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-8)
+    scale = max(float(g.abs().max()) for g in out["cpu"][1])
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-8 * scale)
+    for a, b in zip(out["cuda"][2], out["cpu"][2]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-8 * np.abs(b).max())
+
+
+def test_grid_gpr_launches_k1_and_card_matches_cpu(cuda):
+    """GridGPR with an Rbf axis: K1 builds the axis Grams and cross Grams on
+    the card; loss, gradient and predict_f (diagonal and full) in float64
+    against the CPU, 1e-9."""
+    from gptorch_tpu_torch.models import GridGPR
+
+    rng = np.random.RandomState(7)
+    axes = [np.linspace(0.0, 5.0, 12), np.linspace(0.0, 3.0, 9)]
+    y = rng.randn(12 * 9, 1)
+    xq = rng.uniform(0.0, 3.0, (10, 2))
+    out = {}
+    with _float64():
+        for device in ("cuda", "cpu"):
+            before = gram.rbf_gram.launches
+            model = GridGPR(axes, y, [kernels.Rbf(1, length_scales=0.8), kernels.Matern52(1)],
+                            likelihood=likelihoods.Gaussian(0.1), device=device)
+            loss = model.loss()
+            loss.backward()
+            out[device] = (float(loss.detach()), [torch.zeros(1) if p.grad is None else p.grad.cpu()
+                                                  for p in get_trainable(model).values()],
+                           model.predict_f(xq) + model.posterior().predict_f(xq, diag=False),
+                           gram.rbf_gram.launches - before)
+    assert out["cuda"][3] >= 4 and out["cpu"][3] == 0
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-9)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
+    for a, b in zip(out["cuda"][2], out["cpu"][2]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-9 * np.abs(b).max())
