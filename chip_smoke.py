@@ -20,7 +20,9 @@ parent.
    - K1 ``rbf_gram``: the exact-GP serving and training shapes (d = 8)
      and the sparse paths' (d = 9: Kuu 1024², Kuf 1024 × 4096, Kus
      1024 × 256, ragged 1000 × 4000) in float32 and float64, and its
-     backward against autograd through the plain twin.
+     backward against autograd through the plain twin; then its batched
+     launch at the fleet's shapes (256 Grams of 512², with a var and diag
+     per member, and 256 cross Grams of 512 × 256).
    - K2 ``radial_contractions``: the five radial kinds in float32 and
      float64 at n = 4096, and rbf in float32 at the training shape
      n = 32768; then the five kinds timed at n = 32768 in float32, each
@@ -110,7 +112,9 @@ parent.
    of 16 queries; the means must agree.  Then in float64 at n = 4096 the
    card against the CPU: loss, gradient, α, LOVE variances, diagnostics,
    the CPU's side computed by a background process of this script
-   (``--iterative-cpu-reference PATH``) while the card runs 14 and 15.
+   (``--iterative-cpu-reference PATH``) on half the host's cores from the
+   start of phase 11 (the zoo's, whose readings the card bounds), so that
+   the host-bound readings of phases 3-10 run on an idle host.
 16. psi_statistics: bench_ekernels.py's cell (n = 1000, m = 50, q = 10,
    Rbf-ARD, float32): ψ₀ + Σψ₁ + Σψ₂ and its value-and-grad (the kernel's
    hyperparameters and Xmean), float32 against float64 on the card, and ψ₂
@@ -160,6 +164,40 @@ parent.
    Check: in float64 at n = 2048 (CG to 1e-11, noise 0.1 so it converges)
    the card against the CPU.
    Phases 20-22 print the seconds they took together.
+23. ensemble: bench_ensemble.py's cell (GPEnsemble of B = 256 members, n =
+   512, d = 4, Rbf-ARD, y = sin(Σx) + 0.1ε from RandomState(0), float32): a
+   value-and-grad (one K1 launch for the fleet's 256 Grams, checked) and
+   its device launches, fit_scan Adam (lr 0.05) under the fixed jitter
+   policy (captured) and the default adaptive one (eager), one member's
+   step alone (the serial comparison of bench_ensemble.py, x B),
+   predict_f of 256 shared queries, best().  Checks: float32 against
+   float64 losses and gradient (4·u·κ, κ of the worst member); member_at
+   against the fleet; in float64 at B = 4, n = 256 the card against the
+   CPU and member_at(i) against a standalone GPR; a fleet whose member 2
+   alone is singular gets that member the jitter level the standalone
+   adaptive cholesky picks.
+24. multioutput: ICM at n = 4096, d = 8, p = 4, rank 2, Rbf-ARD (κ spread,
+   see icm_model): a value-and-grad, the two eighs, posterior(), predict_f
+   of 8 batches of 256, predict_f_joint of 64.  LMC at bench_svgp.py's
+   cell with p = 4 outputs from L = 3 latent Rbf-ARD GPs: fit_scan Adam 50
+   steps (fixed jitter, captured), 5 stacked-q natural steps,
+   lmc_posterior, predict_f of 8 batches of 256.  Checks: in float64 the
+   card against the CPU, ICM at n = 512 and LMC at n = 2048, m = 64 (one
+   explicit batch, one natural step).
+25. derivative: DerivativeGPR at n = 2048, d = 8, Rbf-ARD (the joint system
+   18432²), targets and gradients of sin(x·w): a value-and-grad and its
+   stages (the joint Gram, the factor), predict_f and predict_grad of 256.
+   Check: in float64 at n = 128, d = 3 the card against the CPU.
+26. exact_variants: TPR and WarpedGPR (3 tanh terms) at n = 32768 and
+   LaplaceGP (Bernoulli) at n = 8192, d = 8, Rbf-ARD, on bench.py's data:
+   a value-and-grad each, predict_f of 256 (predict_quantiles for the
+   warped GP).  Checks: float32 against float64 loss and gradient at half
+   n (4·u·κ; the Laplace GP's LAPLACE_F32_TOL, which its controls with
+   TF32 products and with K1's Grams rounded to float16 must fail), and in
+   float64 at n = 512 the card against the CPU.
+   Phases 23-26 print the seconds they took together; in the kernels line
+   the fleet, ICM, LMC, the derivative GP, TPR, the warped GP and the
+   Laplace GP are each a path of their own.
 
 On the card, fit_scan captures a first-order run as a CUDA graph; the
 training, general-training, SVGP and DKL phases check that it did.  Before
@@ -322,12 +360,13 @@ UP_F32_TOL = 7e-5
 # GPR at VE_DENSE_N, the card against the CPU at VE_CHECK_N, both float64.
 VE_N, VE_D, VE_M, VE_CHUNK, VE_STEPS, VE_DENSE_N, VE_CHECK_N = 200000, 3, 32, 8192, 3, 512, 4096
 # float32 against float64 Vecchia NLML at VE_N, relative: an H100 reads
-# 5.7e-7 on the seeded data; the limit keeps a factor of about 18.  Its
-# control: the float32 NLML with the neighbour Grams rounded to float16
-# (TF32's 10-bit mantissa) must fail it.  The NLML with TF32 products
-# allowed is printed beside it (the d = 3 products of the neighbour Grams
-# did not take TF32 on an H100: the reading equalled the pinned one).
-VE_F32_TOL = 1e-5
+# 8.8e-10 on the seeded data with the neighbour Grams from K1 (direct
+# differences; 5.7e-7 when they came from batched squared distances in
+# torch ops); the limit keeps a factor of about 23.  Its control: the
+# float32 NLML with the neighbour Grams rounded to float16 (TF32's 10-bit
+# mantissa) must fail it.  The NLML with TF32 products allowed is printed
+# beside it (it equals the pinned one on an H100).
+VE_F32_TOL = 2e-8
 # The state-space GP at bench_ssgp.py's cell: n = 65536 (bench.py:291-292)
 # and bench_ssgp.py's default n = 10⁶ (the chunked scan, chunk 65536);
 # fit_scan Adam SS_STEPS a call; SS_SAMPLES joint draws timed and
@@ -347,6 +386,39 @@ KR_SIZE, KR_STEPS, KR_FULL_QUERIES, KR_CHECK_SIZES = 64, 4, 64, (16, 12, 10)
 # SKI at bench_calibration.py:95-104's 3-D row, at bench.py's n = 100000
 # (its test split gives the queries); the float64 check at SKI_CHECK_N.
 SKI_N, SKI_GRID, SKI_CG_QUERIES, SKI_CHECK_N, SKI_CHECK_TOL, SKI_CHECK_ITERS = 100000, 16, 16, 2048, 1e-11, 400
+# The fleet of exact GPs at bench_ensemble.py's cell: B = 256 members of
+# n = 512 points, d = 4, Rbf-ARD, Adam at lr 0.05; EN_STEPS steps a fit_scan
+# call; the float64 card-vs-CPU check at EN_CHECK_B members of EN_CHECK_N.
+EN_B, EN_N, EN_D, EN_LR, EN_STEPS, EN_CHECK_B, EN_CHECK_N = 256, 512, 4, 0.05, 10, 4, 256
+# ICM at n = 4096, d = 8 (bench.py's width), p = 4 outputs, rank 2; joint
+# predictions at MO_JOINT queries; the float64 check at n = 512.  LMC at
+# bench_svgp.py's cell (n = 45730, d = 9, m = 1024, batch 4096) with p = 4
+# outputs mixed from L = 3 latent Rbf-ARD GPs by a seeded W; 50 captured
+# Adam steps at lr 1e-2 and MO_NAT_STEPS natural steps; the float64 check
+# at n = 2048, m = 64 on one explicit batch.
+ICM_N, ICM_P, ICM_RANK, MO_JOINT, ICM_CHECK_N = 4096, 4, 2, 64, 512
+LMC_L, MO_NAT_STEPS, MO_NAT_LR, LMC_CHECK_N, LMC_CHECK_M = 3, 5, 0.1, 2048, 64
+# The derivative GP at n = 2048, d = 8 (a joint system of 18432²); the
+# float64 check at n = 128, d = 3.
+DG_N, DG_CHECK_N, DG_CHECK_D = 2048, 128, 3
+# TPR and WarpedGPR (3 tanh terms) at bench.py's n = 32768, d = 8; the
+# LaplaceGP (Bernoulli) at n = 8192, whose 20 differentiated Newton steps
+# each keep n² tensors; float32 against float64 at half those n (a float64
+# value-and-grad keeps several n² buffers: at n = 32768 each is 8.6 GB);
+# the float64 card-vs-CPU checks at n = 512.
+EV_N, EV_LAPLACE_N, EV_CHECK_N = 32768, 8192, 512
+# The Laplace GP's float32 evidence and gradient against float64 at
+# EV_LAPLACE_N / 2.  Its Newton steps choose their step size by the largest
+# ψ on a grid; near the mode ψ changes by less than its float32 rounding,
+# so the float32 mode is resolved only to about √u (u the unit roundoff)
+# and the gradient through the steps with it: 4·u·κ does not hold here.
+# An H100 reads 2.95e-6 (evidence) and 9.11e-5 (gradient) on the seeded
+# data, the same in every run of this phase; the limits keep a factor of
+# about 3.4.  The float32 run with TF32 products allowed, or with K1's
+# Grams rounded to float16 or bfloat16, reads within 2x of the pinned run
+# (the rounding averages out; the Newton steps' resolution sets the gap),
+# so the control that must fail is the Grams off by 2⁻¹¹ in one direction.
+LAPLACE_F32_TOL = {"loss": 1e-5, "grad": 3e-4}
 
 
 def lowrank_tol(name, n):
@@ -406,12 +478,13 @@ def bound_ms(bytes_moved, ops, dtype):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def gram_bound_ms(n1, n2, d, sym, dtype, itemsize):
-    """Least time for the radial Gram: each input read once, the output
-    written once; 3d + 3 operations per output (d differences, d fused
-    multiply-adds counted as two, the scale, the exp, the variance)."""
-    bytes_moved = ((n1 if sym else n1 + n2) * d + 2 + n1 * n2) * itemsize
-    return bound_ms(bytes_moved, n1 * n2 * (3 * d + 3), dtype)
+def gram_bound_ms(n1, n2, d, sym, dtype, itemsize, batch=1):
+    """Least time for ``batch`` radial Grams: each member's inputs and its
+    two scalars read once, its output written once; 3d + 3 operations per
+    output (d differences, d fused multiply-adds counted as two, the scale,
+    the exp, the variance)."""
+    bytes_moved = batch * ((n1 if sym else n1 + n2) * d + 2 + n1 * n2) * itemsize
+    return bound_ms(bytes_moved, batch * n1 * n2 * (3 * d + 3), dtype)
 
 
 def contract_bytes(n, d, dy, itemsize):
@@ -451,7 +524,9 @@ def dtype_name(dtype):
 # check_gram_coverage): the GPLVM's Kuu, K(Z, latents) and K(Z, queries)
 # at q = 10; VFE's Kuf over all n; SVGP's start of q(u) from an exact GP
 # on 100 points; GPR's K(X, X) and K(X, queries) at n = 4096; the grid
-# GP's axis Grams (64², d = 1) and cross Grams of 256 and 64 queries.
+# GP's axis Grams (64², d = 1) and cross Grams of 256 and 64 queries; the
+# single Grams of phases 23-26 (a fleet member alone, ICM, the derivative
+# GP's value block, the Laplace GP, TPR at half n).
 GRAM_CASES = [
     ("sym+diag", N, N, True, D, True),
     ("cross", N, Q, False, D, False),
@@ -472,6 +547,30 @@ GRAM_CASES = [
     ("grid K", KR_SIZE, KR_SIZE, True, 1, False),
     ("grid Ks", Q, KR_SIZE, False, 1, False),
     ("grid Ks full", KR_FULL_QUERIES, KR_SIZE, False, 1, False),
+    ("member K", EN_N, EN_N, True, EN_D, True),
+    ("icm Ks", Q, ICM_N, False, D, False),
+    ("icm joint Ks", MO_JOINT, ICM_N, False, D, False),
+    ("icm joint Kss", MO_JOINT, MO_JOINT, True, D, False),
+    ("dgp K", DG_N, DG_N, True, D, False),
+    ("dgp Ks", Q, DG_N, False, D, False),
+    ("laplace K", EV_LAPLACE_N, EV_LAPLACE_N, True, D, False),
+    ("laplace Ks", EV_LAPLACE_N, Q, False, D, False),
+    ("half K", EV_N // 2, EV_N // 2, True, D, True),
+]
+# K1's batched cases, (label, B, n1, n2, symmetric, d, noise on the
+# diagonal), with a var and a diag of each member's own: the fleet's Grams
+# with its noise, and its cross Grams against shared queries; the Vecchia
+# path's neighbour Grams and cross columns of a full chunk, of the last
+# chunk (n = 200000 leaves 3392 rows) and of a query batch.
+GRAM_BATCHED_CASES = [
+    ("fleet K", EN_B, EN_N, EN_N, True, EN_D, True),
+    ("fleet Ks", EN_B, EN_N, Q, False, EN_D, False),
+    ("ve Knn", VE_CHUNK, VE_M, VE_M, True, VE_D, False),
+    ("ve k", VE_CHUNK, VE_M, 1, False, VE_D, False),
+    ("ve Knn last", VE_N % VE_CHUNK, VE_M, VE_M, True, VE_D, False),
+    ("ve k last", VE_N % VE_CHUNK, VE_M, 1, False, VE_D, False),
+    ("ve Knn query", Q, VE_M, VE_M, True, VE_D, False),
+    ("ve k query", Q, VE_M, 1, False, VE_D, False),
 ]
 
 
@@ -503,16 +602,64 @@ def f16_neighbour_grams():
 
 
 @contextlib.contextmanager
+def vmapped_neighbour_grams(torch):
+    """The Vecchia neighbour Grams of every kernel, an Rbf's too, mapped by
+    ``torch.func.vmap`` inside the block: the yardstick of
+    ops.vecchia.batched_gram's route for an Rbf (its own ``K`` on the
+    batch)."""
+    from gptorch_tpu_torch.ops import vecchia as vops
+
+    batched_gram = vops.batched_gram
+    vops.batched_gram = lambda kernel, a, b=None: torch.func.vmap(kernel.K)(*((a,) if b is None else (a, b)))
+    try:
+        yield
+    finally:
+        vops.batched_gram = batched_gram
+
+
+@contextlib.contextmanager
+def rounded_rbf_grams(torch, dtype):
+    """Every Rbf Gram (K1's output) rounded to ``dtype`` (float16: the
+    10-bit mantissa of TF32; bfloat16: 7 bits) inside the block: two of the
+    Laplace GP's control runs."""
+    from gptorch_tpu_torch import kernels
+
+    rbf_gram = kernels.rbf_gram
+    kernels.rbf_gram = lambda *args, **kw: rbf_gram(*args, **kw).to(dtype).to(args[0].dtype)
+    try:
+        yield
+    finally:
+        kernels.rbf_gram = rbf_gram
+
+
+@contextlib.contextmanager
+def scaled_rbf_grams(factor):
+    """Every Rbf Gram (K1's output) times ``factor`` inside the block: for
+    1 + 2⁻¹¹, half a float16 step in one direction (a kernel that misread
+    its variance by that much), the Laplace GP's control that its float32
+    limits must fail."""
+    from gptorch_tpu_torch import kernels
+
+    rbf_gram = kernels.rbf_gram
+    kernels.rbf_gram = lambda *args, **kw: rbf_gram(*args, **kw) * factor
+    try:
+        yield
+    finally:
+        kernels.rbf_gram = rbf_gram
+
+
+@contextlib.contextmanager
 def gram_launch_shapes():
-    """Records (n1, n2, symmetric, d, dtype) of every K1 launch made inside
-    the block into the set it yields."""
+    """Records (n1, n2, symmetric, d, batch, dtype) of every K1 launch made
+    inside the block into the set it yields (batch None for one Gram)."""
     from gptorch_tpu_torch.ops import gram
 
     shapes, launch = set(), gram._launch
 
     def recorded(x1, x2, var, diag):
-        shapes.add((x1.shape[0], x1.shape[0] if x2 is None else x2.shape[0], x2 is None, x1.shape[1],
-                    dtype_name(x1.dtype)))
+        n2 = x1.shape[-2] if x2 is None else x2.shape[-2]
+        batch = x1.shape[0] if x1.ndim == 3 else None
+        shapes.add((x1.shape[-2], n2, x2 is None, x1.shape[-1], batch, dtype_name(x1.dtype)))
         return launch(x1, x2, var, diag)
 
     gram._launch = recorded
@@ -524,13 +671,51 @@ def gram_launch_shapes():
 
 def check_gram_coverage(shapes):
     """Fails unless each K1 shape of ``shapes`` (see gram_launch_shapes) is
-    one of GRAM_CASES, which gram_phase holds against the twin in both
-    dtypes."""
-    covered = {(n1, n2, sym, d) for _, n1, n2, sym, d, _ in GRAM_CASES}
-    missing = sorted(s for s in shapes if s[:4] not in covered)
-    print(f"# rbf_gram shapes launched on the new paths: {sorted(shapes)}; not among gram_phase's cases: "
+    one of GRAM_CASES or GRAM_BATCHED_CASES, which gram_phase holds against
+    the twin in both dtypes."""
+    covered = {(n1, n2, sym, d, None) for _, n1, n2, sym, d, _ in GRAM_CASES}
+    covered |= {(n1, n2, sym, d, b) for _, b, n1, n2, sym, d, _ in GRAM_BATCHED_CASES}
+    missing = sorted((s for s in shapes if s[:5] not in covered), key=str)
+    print(f"# rbf_gram shapes launched on the new paths: {sorted(shapes, key=str)}; not among gram_phase's cases: "
           f"{missing}", flush=True)
     check(not missing, f"rbf_gram shapes not held against the twin: {missing}")
+
+
+def gram_batched_phase(torch, gram):
+    """K1's batched launch against the twin, float32 and float64, with
+    distinct var and diag per member (a kernel that read member 0's scalars
+    would fail), timed beside the twin and its bound; and one launch for
+    the whole batch."""
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        name = dtype_name(dtype)
+        gen = torch.Generator(device="cuda").manual_seed(4321)
+        for label, b, n1, n2, sym, d, noise in GRAM_BATCHED_CASES:
+            x1 = torch.randn(b, n1, d, generator=gen, device="cuda", dtype=dtype)
+            x2 = None if sym else torch.randn(b, n2, d, generator=gen, device="cuda", dtype=dtype)
+            var = torch.rand(b, generator=gen, device="cuda", dtype=dtype) + 0.5
+            diag = torch.rand(b, generator=gen, device="cuda", dtype=dtype) * 0.1 + 0.01 if noise else None
+            with torch.no_grad():
+                before = gram.rbf_gram.launches
+                k = gram.rbf_gram(x1, x2, var=var, diag=diag)
+                launches = gram.rbf_gram.launches - before
+                torch.cuda.synchronize()
+                p = gram.rbf_gram_plain(x1, x2, var, diag)
+                err = float(((k - p).abs().amax(dim=(1, 2)) / var).max())
+                del k, p
+                ms = time_ms(lambda: gram.rbf_gram(x1, x2, var=var, diag=diag), 50)
+                plain_ms = time_ms(lambda: gram.rbf_gram_plain(x1, x2, var, diag), 20)
+            torch.cuda.empty_cache()
+            bound, bound_by = gram_bound_ms(n1, n2, d, sym, name, x1.element_size(), batch=b)
+            tol = TOL[name] * 1.3
+            print(f"# kernel rbf_gram {label:8s} {name} batch {b} x ({n1}, {n2}) d={d}, a var and diag per member: "
+                  f"max|kernel-plain|/var={err:.3e} (tol {tol:.1e}) in {launches} launch, kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})", flush=True)
+            check(err <= tol, f"rbf_gram {label} {name} batch {b} error {err} > {tol}")
+            check(launches == 1, f"rbf_gram {label}: {launches} launches for one batch")
+            rows.append({"case": label, "dtype": name, "batch": b, "n1": n1, "n2": n2, "d": d, "max_abs_err": err,
+                         "tol": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by})
+    return rows
 
 
 def gram_phase(torch, gram):
@@ -567,6 +752,7 @@ def gram_phase(torch, gram):
             check(err <= tol, f"rbf_gram {label} {name} ({n1},{n2}) error {err} > {tol}")
             rows.append(row)
     rows.append(gram_backward_check(torch, gram))
+    rows.extend(gram_batched_phase(torch, gram))
     return rows
 
 
@@ -742,6 +928,17 @@ def add_counts(*counts):
         for k, v in c.items():
             out[k] += v
     return out
+
+
+@contextlib.contextmanager
+def counted(total):
+    """Adds to ``total`` (launches by kernel name) the launches made inside
+    the block: the counts are set to 0 just before it and read just after,
+    so a path's launches can be summed over the blocks of its own run and
+    leave out the checks run between them."""
+    zero_counts()
+    yield
+    total.update(add_counts(total, read_counts()))
 
 
 def check_captured(what):
@@ -2742,11 +2939,12 @@ def iterative_check_run(torch, device):
 def iterative_cpu_reference(path):
     """The CPU side of iterative_card_vs_cpu, written to ``path`` (npz).
     Run by a background process of this script
-    (``--iterative-cpu-reference PATH``) while the card runs the
-    iterative paths at full n."""
+    (``--iterative-cpu-reference PATH``) from the start of the zoo phases,
+    on half the cores: the card's phases keep the rest for their host
+    threads and the zoo check's reference."""
     import torch
 
-    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 1))  # the card's host thread keeps one core
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
     with default_dtype(torch, torch.float64):
         out, launches = iterative_check_run(torch, "cpu")
     np.savez(path, launched=sum(launches.values()), **out)
@@ -3312,6 +3510,18 @@ def vecchia_phase(torch):
         out["launches"] = add_counts(read_counts(), replayed)
     out["rbf_gram_shapes"] = shapes
     out["peak_mem_gb"] = max(out["peak_mem_gb"], torch.cuda.max_memory_allocated() / 1e9)
+    # the yardstick: Rbf's neighbour Grams mapped by torch.func.vmap, as
+    # every other kernel's are
+    with vmapped_neighbour_grams(torch):
+        yard = {"value_and_grad_ms": time_ms(lambda: iterative_value_and_grad(torch, model), 3),
+                "forward_ms": sum(vecchia_stages(torch, model).values())}
+        yard_predict = []
+        for xb in xq:
+            t0 = time.perf_counter()
+            model.predict_f(xb)
+            yard_predict.append(1e3 * (time.perf_counter() - t0))
+        yard["predict_f_ms"] = float(np.median(yard_predict))
+    out["vmap_yardstick"] = yard
     mu, var = np.concatenate(means), np.concatenate(variances)
     fwd_bound = sum(b[0] for b in bounds.values())
     print(f"# vecchia n={VE_N} d={VE_D} m={VE_M} chunk={VE_CHUNK} f32 ({out['ordering']} ordering): build "
@@ -3327,9 +3537,14 @@ def vecchia_phase(torch):
           f"{out['controls_rel']['tf32']:.3e})", flush=True)
     for key, s in out["stages_ms"].items():
         print(f"# vecchia stage {key}: {s['ms']:.3f} ms (bound {s['bound_ms']:.4f} ms, {s['bound_by']})", flush=True)
+    print(f"# vecchia yardstick, Rbf's neighbour Grams mapped by torch.func.vmap: value-and-grad "
+          f"{yard['value_and_grad_ms']:.2f} ms (the batched route {out['value_and_grad_ms']:.2f}), forward's stages "
+          f"{yard['forward_ms']:.2f} ms ({out['forward_ms']:.2f}), predict_f per batch of {Q} median "
+          f"{yard['predict_f_ms']:.3f} ms ({np.median(predict_ms):.3f})", flush=True)
     check(all(math.isfinite(v) for v in out["losses"]) and np.isfinite(grad32).all(), "non-finite Vecchia loss")
     check(out["losses"][-1] < out["losses"][0], "Vecchia training did not lower the loss")
     check(out["f32_vs_f64_rel"] <= out["f32_vs_f64_tol"], f"Vecchia f32 vs f64 NLML: {out['f32_vs_f64_rel']}")
+    check(out["launches"]["rbf_gram"] > 0, "the Vecchia path never launched rbf_gram")
     check(out["controls_rel"]["f16_gram"] > out["f32_vs_f64_tol"],
           f"the Vecchia limit passes the NLML with float16 Grams ({out['controls_rel']['f16_gram']})")
     check(mu.shape == (Q * BATCHES, 1) and np.isfinite(mu).all() and np.isfinite(var).all() and (var >= 0).all(),
@@ -3963,6 +4178,686 @@ def structured_phases(torch):
     return out, seconds
 
 
+# -- the GP fleet, correlated outputs, the derivative GP, exact variants ------------
+
+
+def f32_tol(kappa):
+    """4·u·κ: the float32 unit roundoff amplified by a bound κ on the
+    condition number of the factored matrix (see full_width_agreement)."""
+    return 4 * F32_UNIT_ROUNDOFF * kappa
+
+
+def value_and_grad_f32_vs_f64(torch, model32, model64):
+    """(loss relative gap, gradient gap over its largest entry) of the same
+    model in float32 and float64 (the float64 one at the float32 one's
+    values)."""
+    from gptorch_tpu_torch import convert
+    from gptorch_tpu_torch.module import get_trainable
+
+    convert.load_trainable(model64, {k: v.detach().double().cpu().numpy() for k, v in get_trainable(model32).items()})
+    l32, g32 = iterative_value_and_grad(torch, model32)
+    l64, g64 = iterative_value_and_grad(torch, model64)
+    return abs(l32 - l64) / abs(l64), rel_gap(g32, g64)
+
+
+def fleet_data(b, n, d, seed=0):
+    """bench_ensemble.py's data: x ~ N(0, I) (b, n, d), y = sin(Σx) + 0.1ε
+    (RandomState(seed)), float32."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, n, d).astype(np.float32)
+    y = (np.sin(x.sum(axis=-1, keepdims=True)) + 0.1 * rng.randn(b, n, 1)).astype(np.float32)
+    return x, y
+
+
+def fleet_model(torch, b, n, dtype, device=None):
+    """GPEnsemble on fleet_data with the Rbf-ARD template, Params in
+    ``dtype`` (the float32 data cast)."""
+    from gptorch_tpu_torch import kernels
+    from gptorch_tpu_torch.models import GPEnsemble
+
+    x, y = fleet_data(b, n, EN_D)
+    with default_dtype(torch, torch.float64 if dtype == np.float64 else torch.float32):
+        return GPEnsemble(x.astype(dtype), y.astype(dtype), kernels.Rbf(EN_D, ARD=True), device=device)
+
+
+def fleet_kappa(torch, model):
+    """The largest condition number over the members of K + σ²I, from each
+    member's eigenvalues in float64."""
+    with torch.no_grad():
+        K = model._map("_compute_kyy").double()
+        lam = torch.linalg.eigvalsh(K)
+    return float((lam[:, -1] / lam[:, 0].clamp_min(1e-300)).max())
+
+
+def timed_fit_scan(torch, model, steps, lr, what, captured):
+    """A warm and a timed ``fit_scan`` Adam call of ``steps`` steps: (ms per
+    step of the timed call, its losses, the replayed launches); checks the
+    capture where ``captured`` says so, and that it did not happen where
+    not."""
+    from gptorch_tpu_torch.training import fit
+
+    fit.fit_scan(model, "Adam", max_iter=steps, learning_rate=lr)
+    check(fit.fit_scan.last_run["captured"] == captured,
+          f"{what}: fit_scan {'ran eagerly' if captured else 'was captured'} on the card")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = fit.fit_scan(model, "Adam", max_iter=steps, learning_rate=lr)[1]
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / steps, [float(v) for v in losses.cpu()], replayed_launches()
+
+
+def ensemble_phase(torch):
+    """The fleet of GPs at bench_ensemble.py's cell; see the module
+    docstring, phase 23.  Its launches are those of the fleet's own runs
+    (value-and-grad, both fit_scan calls, predict_f, best()); the float64
+    run, κ, one member's serial steps and member_at(3) run between them,
+    outside the counts."""
+    from gptorch_tpu_torch import settings
+    from gptorch_tpu_torch.ops import gram
+
+    out = {"members": EN_B, "n": EN_N, "d": EN_D, "dtype": "float32"}
+    model = fleet_model(torch, EN_B, EN_N, np.float32)
+    check(model.device.type == "cuda", "GPEnsemble did not land on the card")
+    xq = np.random.RandomState(23).randn(Q, EN_D).astype(np.float32)
+    launches = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with gram_launch_shapes() as shapes:
+        with counted(launches):
+            before = gram.rbf_gram.launches
+            loss32, grad32 = iterative_value_and_grad(torch, model)
+            out["k1_launches_per_value_and_grad"] = gram.rbf_gram.launches - before
+            out["value_and_grad_ms"] = time_ms(lambda: iterative_value_and_grad(torch, model), 3)
+            _, out["busy_ms"], _, out["launches_per_value_and_grad"] = device_busy_ms(
+                torch, lambda: iterative_value_and_grad(torch, model))
+        kappa = fleet_kappa(torch, model)
+        out["f32_vs_f64"] = value_and_grad_f32_vs_f64(torch, model, fleet_model(torch, EN_B, EN_N, np.float64))
+        out["f32_tol"] = f32_tol(kappa)
+        with settings.override(jitter_policy="fixed"):
+            with counted(launches):
+                out["fixed_step_ms"], fixed_losses, r = timed_fit_scan(torch, model, EN_STEPS, EN_LR, "fleet (fixed)",
+                                                                       True)
+                launches.update(add_counts(launches, r))
+            member = model.member_at(0)
+            out["member_fixed_step_ms"], _, _ = timed_fit_scan(torch, member, EN_STEPS, EN_LR, "member (fixed)", True)
+        with counted(launches):
+            out["adaptive_step_ms"], adaptive_losses, _ = timed_fit_scan(torch, model, EN_STEPS, EN_LR,
+                                                                         "fleet (adaptive)", False)
+        out["member_adaptive_step_ms"], _, _ = timed_fit_scan(torch, member, EN_STEPS, EN_LR, "member (adaptive)",
+                                                              False)
+        out["losses"] = fixed_losses + adaptive_losses
+        with counted(launches):
+            with torch.no_grad():
+                before = gram.rbf_gram.launches
+                mean, var = model.predict_f(torch.as_tensor(xq, device="cuda"))
+                out["k1_launches_per_predict"] = gram.rbf_gram.launches - before
+                out["predict_f_ms"] = time_ms(lambda: model.predict_f(torch.as_tensor(xq, device="cuda")), 5)
+            t0 = time.perf_counter()
+            best, idx = model.best()
+            out["best_ms"] = 1e3 * (time.perf_counter() - t0)
+        fleet_loss = float(model.losses()[3].detach())
+        out["member_gap"] = abs(float(model.member_at(3).loss().detach()) - fleet_loss) / abs(fleet_loss)
+        out["member_tol"] = f32_tol(fleet_kappa(torch, model))
+        out["launches"] = launches
+    out["rbf_gram_shapes"] = shapes
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    fleet_bound = gram_bound_ms(EN_N, EN_N, EN_D, True, "float32", 4, batch=EN_B)
+    print(f"# ensemble B={EN_B} n={EN_N} d={EN_D} Rbf-ARD f32: value-and-grad {out['value_and_grad_ms']:.3f} ms with "
+          f"{out['k1_launches_per_value_and_grad']} K1 launch for the {EN_B} Grams (their bound "
+          f"{fleet_bound[0]:.4f} ms); {out['launches_per_value_and_grad']} device launches, busy {out['busy_ms']:.3f} "
+          f"ms; fit_scan Adam lr {EN_LR}: fixed jitter (captured) {out['fixed_step_ms']:.3f} ms/step, adaptive "
+          f"(eager) {out['adaptive_step_ms']:.3f} ms/step; one member alone {out['member_fixed_step_ms']:.3f} / "
+          f"{out['member_adaptive_step_ms']:.3f} ms/step, x {EN_B} serially {EN_B * out['member_fixed_step_ms']:.1f} / "
+          f"{EN_B * out['member_adaptive_step_ms']:.1f} ms; predict_f of {Q} shared queries {out['predict_f_ms']:.3f} ms "
+          f"({out['k1_launches_per_predict']} K1 launches); best() {out['best_ms']:.2f} ms (member {idx}); peak "
+          f"{out['peak_mem_gb']:.3f} GB; NLML f32 vs f64 relative {out['f32_vs_f64'][0]:.3e}, gradient "
+          f"{out['f32_vs_f64'][1]:.3e} (tol 4*u*kappa = {out['f32_tol']:.3e}, kappa {kappa:.3e}); member_at(3) vs "
+          f"the fleet's loss after training {out['member_gap']:.3e} (tol {out['member_tol']:.3e}); launches "
+          f"{out['launches']}", flush=True)
+    check(out["k1_launches_per_value_and_grad"] == 1, "the fleet's value-and-grad did not build its Grams in one launch")
+    check(np.isfinite(loss32) and np.isfinite(grad32).all(), "non-finite fleet loss or gradient")
+    check(all(math.isfinite(v) for v in out["losses"]), "non-finite fleet training loss")
+    check(fixed_losses[-1] < fixed_losses[0] and adaptive_losses[-1] < adaptive_losses[0],
+          "fleet training did not lower the loss")
+    check(all(r <= out["f32_tol"] for r in out["f32_vs_f64"]), f"fleet f32 vs f64: {out['f32_vs_f64']} > {out['f32_tol']}")
+    check(out["member_gap"] <= out["member_tol"], f"member_at(3) against the fleet's loss: {out['member_gap']}")
+    check(tuple(mean.shape) == (EN_B, Q, 1) and bool(torch.isfinite(mean).all()) and bool((var > -1e-4).all()),
+          "fleet predict_f")
+    check(best.X.shape == (EN_N, EN_D), "best() did not give a member")
+    check(out["launches"]["rbf_gram"] > 0, "the fleet path never launched rbf_gram")
+    del model, member, best
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = ensemble_card_vs_cpu(torch)
+    out["jitter"] = ensemble_jitter_check(torch)
+    return out
+
+
+def spread_fleet(model, seed=0, scale=0.3):
+    """Each member's trainable raws moved by scale·N(0, 1) draws from
+    RandomState(seed), member 0 kept: the same values on any device."""
+    from gptorch_tpu_torch import convert
+    from gptorch_tpu_torch.module import get_trainable
+
+    rng = np.random.RandomState(seed)
+    values = {}
+    for k, v in sorted(get_trainable(model).items()):
+        eps = scale * rng.randn(*v.shape)
+        eps[0] = 0.0
+        values[k] = v.detach().double().cpu().numpy() + eps
+    return convert.load_trainable(model, values)
+
+
+def ensemble_card_vs_cpu(torch):
+    """Float64, EN_CHECK_B members of EN_CHECK_N at spread values: the
+    card's per-member losses, gradient and predict_f against the CPU's,
+    and member_at(i) and the fleet's loss of member i against a standalone
+    GPR of member i's data at its values on the card, all to F64_REL_TOL."""
+    from gptorch_tpu_torch import convert, kernels
+    from gptorch_tpu_torch.models import GPR
+    from gptorch_tpu_torch.module import get_trainable
+
+    xq = np.random.RandomState(24).randn(16, EN_D)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = spread_fleet(fleet_model(torch, EN_CHECK_B, EN_CHECK_N, np.float64, device=device))
+        with default_dtype(torch, torch.float64):
+            _, grad = iterative_value_and_grad(torch, model)
+            runs[device] = (model.losses().detach().cpu().numpy(), grad, *model.predict_f(xq))
+    rels = [rel_gap(a, b) for a, b in zip(runs["cuda"], runs["cpu"])]
+    x, y = fleet_data(EN_CHECK_B, EN_CHECK_N, EN_D)
+    member_gaps = []
+    with default_dtype(torch, torch.float64):
+        model = spread_fleet(fleet_model(torch, EN_CHECK_B, EN_CHECK_N, np.float64))
+        losses = model.losses().detach().cpu().numpy()
+        for i in range(EN_CHECK_B):
+            alone = GPR(x[i].astype(np.float64), y[i].astype(np.float64), kernels.Rbf(EN_D, ARD=True), fast=False)
+            shapes = {k: v.shape for k, v in get_trainable(alone).items()}
+            convert.load_trainable(alone, {k: v.detach()[i].cpu().numpy().reshape(shapes[k])
+                                           for k, v in get_trainable(model.member).items()})
+            want = float(alone.loss().detach())
+            member_gaps.append(abs(float(model.member_at(i).loss().detach()) - want) / abs(want))
+            member_gaps.append(abs(losses[i] - want) / abs(want))
+    print(f"# ensemble f64 B={EN_CHECK_B} n={EN_CHECK_N}: card vs CPU max relative gaps losses {rels[0]:.3e}, "
+          f"gradient {rels[1]:.3e}, predict_f mean {rels[2]:.3e}, var {rels[3]:.3e}; member_at(i) and the fleet's "
+          f"loss against a standalone GPR on the card {max(member_gaps):.3e} (tol {F64_REL_TOL})", flush=True)
+    check(all(r <= F64_REL_TOL for r in rels + member_gaps), f"ensemble f64 checks: {rels}, {member_gaps}")
+    return {"card_vs_cpu": rels, "member_vs_gpr": max(member_gaps)}
+
+
+def ensemble_jitter_check(torch):
+    """A float64 fleet of EN_CHECK_B members whose member 2 has its rows
+    repeated and a noise of 1e-30, so its K + σ²I is singular: under the
+    adaptive policy exactly that member is jittered, at the level the
+    standalone adaptive cholesky picks for its matrix, and its loss in the
+    fleet equals member_at(2)'s alone (F64_REL_TOL)."""
+    from gptorch_tpu_torch import functions
+
+    with default_dtype(torch, torch.float64):
+        x, y = fleet_data(EN_CHECK_B, EN_CHECK_N, EN_D, seed=5)
+        x[2, EN_CHECK_N // 2:] = x[2, :EN_CHECK_N // 2]
+        from gptorch_tpu_torch import kernels
+        from gptorch_tpu_torch.models import GPEnsemble
+
+        model = GPEnsemble(x.astype(np.float64), y.astype(np.float64), kernels.Rbf(EN_D, ARD=True))
+        p = model.member.likelihood.variance
+        raw = p.raw.detach().clone()
+        raw[2] = p.bijector.inverse(torch.tensor(1e-30, dtype=torch.float64, device="cuda"))
+        p.set_raw(raw)
+        with torch.no_grad():
+            K = model._map("_compute_kyy")
+            fleet = functions._select_jitter(K).cpu().numpy()
+            alone = np.array([float(functions._select_jitter(K[i])) for i in range(EN_CHECK_B)])
+            losses = model.losses().cpu().numpy()
+            member = float(model.member_at(2).loss())
+            kappa = (float(torch.linalg.eigvalsh(K[2])[-1]) + fleet[2]) / fleet[2]
+    # the jittered system is conditioned ~λ_max/jitter, so the batched and the
+    # single factorizations agree to a few float64 roundoffs times that
+    tol = 4 * 2.0 ** -53 * kappa
+    gap = abs(losses[2] - member) / abs(member)
+    print(f"# ensemble adaptive jitter f64: the fleet's levels {fleet.tolist()}, each member's alone "
+          f"{alone.tolist()}; member 2's loss in the fleet vs alone {gap:.3e} (tol 4*u*kappa = {tol:.3e}, kappa "
+          f"{kappa:.3e})", flush=True)
+    check((fleet == alone).all() and (fleet > 0).sum() == 1 and fleet[2] > 0,
+          f"fleet jitter levels {fleet} against each member's {alone}")
+    check(np.isfinite(losses).all() and gap <= tol, f"member 2's loss in the fleet {losses[2]} vs {member}")
+    return {"levels": fleet.tolist(), "member_gap": gap, "tol": tol}
+
+
+def icm_data(n, d, p, seed=0):
+    """x ~ N(0, I), four smooth functions of x mixed by a seeded (p, p)
+    matrix, + 0.1ε (RandomState(seed)), float32."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, d).astype(np.float32)
+    f = np.stack([np.sin(x[:, 0]), np.cos(x[:, 1]), np.sin(x[:, 0] + x[:, 2]), 0.5 * x[:, 3]], axis=1)[:, :p]
+    y = f @ rng.randn(p, p) + 0.1 * rng.randn(n, p)
+    return x, y.astype(np.float32)
+
+
+def icm_model(torch, n, dtype, device=None):
+    """ICM on icm_data with Rbf-ARD, rank ICM_RANK, and κ set to
+    linspace(0.5, 2, p): at the default start (κ = 1, W of rank 2 < p) B has
+    a double eigenvalue at 1, where eigh's backward divides by a zero gap
+    (in float32 the two eigenvalues come out equal)."""
+    from gptorch_tpu_torch import kernels
+    from gptorch_tpu_torch.models import ICM
+
+    x, y = icm_data(n, D, ICM_P)
+    with default_dtype(torch, torch.float64 if dtype == np.float64 else torch.float32):
+        model = ICM(x.astype(dtype), y.astype(dtype), kernels.Rbf(D, ARD=True), rank=ICM_RANK, device=device)
+        model.kappa = model.kappa.with_value(torch.linspace(0.5, 2.0, ICM_P))
+    return model
+
+
+def lmc_data(n, d, m, p, latents, seed=0):
+    """bench_svgp.py's inputs and inducing inputs (sparse_data), and p
+    outputs mixed by a seeded W (p, L) from L latent functions sin(x·a_l)
+    + 0.1ε, float32."""
+    x, _, z = sparse_data(n, d, m, np.float32, seed)
+    rng = np.random.RandomState(seed + 1)
+    g = np.sin(x @ rng.randn(d, latents) / math.sqrt(d))
+    y = g @ rng.randn(p, latents).T + 0.1 * rng.randn(n, p)
+    return x, y.astype(np.float32), z
+
+
+def lmc_model(torch, n, m, dtype, batch_size=None, device=None):
+    from gptorch_tpu_torch import kernels
+    from gptorch_tpu_torch.models import LMC
+
+    x, y, z = lmc_data(n, SP_D, m, ICM_P, LMC_L)
+    with default_dtype(torch, torch.float64 if dtype == np.float64 else torch.float32):
+        return LMC(x.astype(dtype), y.astype(dtype), kernels.Rbf(SP_D, ARD=True), num_latents=LMC_L,
+                   inducing_points=z.astype(dtype), batch_size=batch_size, device=device)
+
+
+def multioutput_phase(torch):
+    """ICM and LMC, each its own path in the launch counts; see the module
+    docstring, phase 24."""
+    from gptorch_tpu_torch import settings
+    from gptorch_tpu_torch.training.natgrad import make_natgrad_step
+
+    out = {"icm": {"n": ICM_N, "d": D, "p": ICM_P, "rank": ICM_RANK},
+           "lmc": {"n": SP_N, "d": SP_D, "m": SP_M, "batch": SP_BATCH, "p": ICM_P, "latents": LMC_L}}
+    icm = icm_model(torch, ICM_N, np.float32)
+    check(icm.device.type == "cuda", "ICM did not land on the card")
+    rng = np.random.RandomState(25)
+    xq = [rng.randn(Q, D).astype(np.float32) for _ in range(BATCHES)]
+    o, L = out["icm"], out["lmc"]
+    o["launches"], L["launches"] = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with gram_launch_shapes() as shapes:
+        with counted(o["launches"]):
+            loss, grad = iterative_value_and_grad(torch, icm)
+            o["value_and_grad_ms"] = time_ms(lambda: iterative_value_and_grad(torch, icm), 3)
+            with torch.no_grad():
+                o["stages_ms"] = {"eigh x2 (K1 inside)": time_ms(icm._eigs, 3)}
+            t0 = time.perf_counter()
+            post = icm.posterior()
+            torch.cuda.synchronize()
+            o["posterior_ms"] = 1e3 * (time.perf_counter() - t0)
+            o["predict_f_ms"], moments = [], []
+            for xb in xq:
+                t0 = time.perf_counter()
+                moments.append(post.predict_f(xb))
+                o["predict_f_ms"].append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            jmean, jcov = post.predict_f_joint(xq[0][:MO_JOINT])
+            o["joint_ms"] = 1e3 * (time.perf_counter() - t0)
+        o["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del icm, post
+        torch.cuda.empty_cache()
+
+        lmc = lmc_model(torch, SP_N, SP_M, np.float32, batch_size=SP_BATCH)
+        check(lmc.device.type == "cuda", "LMC did not land on the card")
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        with counted(L["launches"]):
+            with settings.override(jitter_policy="fixed"):
+                lmc.fit_scan("Adam", max_iter=SP_STEPS, learning_rate=SP_LR, generator=gen)
+                L["launches_per_captured_step"] = check_captured("LMC training")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses = lmc.fit_scan("Adam", max_iter=SP_STEPS, learning_rate=SP_LR, generator=gen)
+                torch.cuda.synchronize()
+                L["fit_scan_step_ms"] = 1e3 * (time.perf_counter() - t0) / SP_STEPS
+                L["launches"].update(add_counts(L["launches"], replayed_launches()))
+                L["losses"] = [float(v) for v in losses.cpu()]
+            step, _ = make_natgrad_step(lmc, nat_lr=MO_NAT_LR)
+            L["nat_losses"], L["nat_step_ms"] = [], []
+            for _ in range(MO_NAT_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                L["nat_losses"].append(float(step(gen)))
+                L["nat_step_ms"].append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            lpost = lmc.posterior()
+            torch.cuda.synchronize()
+            L["posterior_ms"] = 1e3 * (time.perf_counter() - t0)
+            L["predict_f_ms"], lmoments = [], []
+            for xb in [np.random.RandomState(26 + i).randn(Q, SP_D).astype(np.float32) for i in range(BATCHES)]:
+                t0 = time.perf_counter()
+                lmoments.append(lpost.predict_f(xb))
+                L["predict_f_ms"].append(1e3 * (time.perf_counter() - t0))
+        L["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["rbf_gram_shapes"] = shapes
+    out["peak_mem_gb"] = max(out["icm"]["peak_mem_gb"], L["peak_mem_gb"])
+    print(f"# multioutput ICM n={ICM_N} d={D} p={ICM_P} rank {ICM_RANK} Rbf-ARD f32: value-and-grad "
+          f"{o['value_and_grad_ms']:.2f} ms (eigh x2 with K1 {o['stages_ms']['eigh x2 (K1 inside)']:.2f} ms); "
+          f"posterior() {o['posterior_ms']:.2f} ms; predict_f per batch of {Q} median {np.median(o['predict_f_ms']):.3f} "
+          f"ms; predict_f_joint of {MO_JOINT} {o['joint_ms']:.2f} ms; peak {o['peak_mem_gb']:.3f} GB; launches "
+          f"{o['launches']}", flush=True)
+    print(f"# multioutput LMC n={SP_N} d={SP_D} m={SP_M} batch {SP_BATCH} p={ICM_P} L={LMC_L} f32: fit_scan Adam "
+          f"(captured, launches recorded per captured step {L['launches_per_captured_step']}) "
+          f"{L['fit_scan_step_ms']:.3f} ms/step over {SP_STEPS}; natural steps (gamma {MO_NAT_LR}) "
+          f"{', '.join(f'{t:.1f}' for t in L['nat_step_ms'])} ms, losses {L['nat_losses']}; posterior() "
+          f"{L['posterior_ms']:.2f} ms; predict_f per batch of {Q} median {np.median(L['predict_f_ms']):.3f} ms; peak "
+          f"{L['peak_mem_gb']:.3f} GB; launches {L['launches']}", flush=True)
+    check(np.isfinite(loss) and np.isfinite(grad).all(), "non-finite ICM loss or gradient")
+    for mean, var in moments:
+        check(mean.shape == (Q, ICM_P) and np.isfinite(mean).all() and (var >= 0).all(), "ICM predict_f")
+    check(jmean.shape == (MO_JOINT, ICM_P) and jcov.shape == (MO_JOINT, ICM_P, MO_JOINT, ICM_P)
+          and np.isfinite(jcov).all(), "ICM predict_f_joint")
+    check(all(math.isfinite(v) for v in L["losses"] + L["nat_losses"]), "non-finite LMC loss")
+    check(np.mean(L["losses"][-10:]) < np.mean(L["losses"][:10]), "LMC training did not lower the loss")
+    for mean, var in lmoments:
+        check(mean.shape == (Q, ICM_P) and np.isfinite(mean).all() and (var >= -1e-4).all(), "LMC predict_f")
+    check(o["launches"]["rbf_gram"] > 0, "the ICM path never launched rbf_gram")
+    check(L["launches"]["rbf_gram"] > 0, "the LMC path never launched rbf_gram")
+    del lmc, lpost
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = multioutput_card_vs_cpu(torch)
+    return out
+
+
+def multioutput_card_vs_cpu(torch):
+    """Float64: ICM at n = ICM_CHECK_N (loss, gradient, predict_f,
+    predict_f_joint) and LMC at n = LMC_CHECK_N, m = LMC_CHECK_M (the ELBO
+    and its gradient on one explicit batch, predict_f, then one natural
+    step's q(u)), the card against the CPU, to F64_REL_TOL."""
+    from gptorch_tpu_torch.module import get_trainable
+    from gptorch_tpu_torch.training.natgrad import make_natgrad_step
+
+    rng = np.random.RandomState(27)
+    xq, xq_lmc = rng.randn(16, D), rng.randn(16, SP_D)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        with default_dtype(torch, torch.float64):
+            icm = icm_model(torch, ICM_CHECK_N, np.float64, device=device)
+            loss, grad = iterative_value_and_grad(torch, icm)
+            lmc = lmc_model(torch, LMC_CHECK_N, LMC_CHECK_M, np.float64, device=device)
+            xb, yb = lmc.X[::4], lmc.Y[::4]
+            lmc.zero_grad(set_to_none=True)
+            elbo = lmc._loss(xb, yb)
+            elbo.backward()
+            raws = get_trainable(lmc)
+            lgrad = np.concatenate([raws[k].grad.cpu().numpy().ravel() for k in sorted(raws)])
+            step, _ = make_natgrad_step(lmc, nat_lr=0.5, optimizer=lambda ps: torch.optim.SGD(ps, lr=0.0))
+            lmc.batch_size = None  # the natural step on the full data
+            step()
+            q = np.concatenate([raws[k].detach().cpu().numpy().ravel() for k in ("q_mu", "q_chol")])
+            lmean, lvar = lmc.predict_f(xq_lmc)  # after the step: q_mu = 0 before it gives a zero mean
+            runs[device] = (np.array([loss]), grad, *icm.predict_f(xq), *icm.predict_f_joint(xq[:4]),
+                            np.array([float(elbo.detach())]), lgrad, lmean, lvar, q)
+    rels = [rel_gap(a, b) for a, b in zip(runs["cuda"], runs["cpu"])]
+    print(f"# multioutput f64 card vs CPU: ICM n={ICM_CHECK_N} loss {rels[0]:.3e}, gradient {rels[1]:.3e}, predict_f "
+          f"{rels[2]:.3e} / {rels[3]:.3e}, joint {rels[4]:.3e} / {rels[5]:.3e}; LMC n={LMC_CHECK_N} m={LMC_CHECK_M} "
+          f"ELBO {rels[6]:.3e}, gradient {rels[7]:.3e}, natural step q(u) {rels[10]:.3e}, then predict_f {rels[8]:.3e} / "
+          f"{rels[9]:.3e} (tol {F64_REL_TOL})", flush=True)
+    check(all(r <= F64_REL_TOL for r in rels), f"multioutput f64 card vs CPU: {rels}")
+    return rels
+
+
+def derivative_data(n, d, seed=0):
+    """x ~ N(0, I), f = sin(x·w) with a seeded w, y = f + 0.01ε and the
+    exact gradient cos(x·w)·w (RandomState(seed)), float32."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, d)
+    w = rng.randn(d) / math.sqrt(d)
+    s = x @ w
+    y = np.sin(s)[:, None] + 0.01 * rng.randn(n, 1)
+    return x.astype(np.float32), y.astype(np.float32), (np.cos(s)[:, None] * w[None, :]).astype(np.float32)
+
+
+def derivative_model(torch, n, d, dtype, device=None):
+    from gptorch_tpu_torch import kernels, likelihoods
+    from gptorch_tpu_torch.models import DerivativeGPR
+
+    x, y, g = derivative_data(n, d)
+    with default_dtype(torch, torch.float64 if dtype == np.float64 else torch.float32):
+        return DerivativeGPR(x.astype(dtype), y.astype(dtype), kernels.Rbf(d, ARD=True), g.astype(dtype),
+                             likelihood=likelihoods.Gaussian(1e-2), grad_variance=1e-2, device=device)
+
+
+def derivative_phase(torch):
+    """The derivative GP; see the module docstring, phase 25."""
+    out = {"n": DG_N, "d": D, "joint": DG_N * (1 + D), "dtype": "float32"}
+    model = derivative_model(torch, DG_N, D, np.float32)
+    check(model.device.type == "cuda", "DerivativeGPR did not land on the card")
+    rng = np.random.RandomState(28)
+    xq = [rng.randn(Q, D).astype(np.float32) for _ in range(2)]
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with gram_launch_shapes() as shapes:
+        loss, grad = iterative_value_and_grad(torch, model)
+        out["value_and_grad_ms"] = time_ms(lambda: iterative_value_and_grad(torch, model), 2)
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        from gptorch_tpu_torch.functions import add_diag, cholesky
+
+        with torch.no_grad():
+            A = model._joint_gram(model.X)
+            noise = model._noise_diag(DG_N, D, A.dtype)
+            out["stages_ms"] = {"joint Gram (K1 + derivative blocks)": time_ms(lambda: model._joint_gram(model.X), 2),
+                                "factor": time_ms(lambda: cholesky(add_diag(A, noise)), 2)}
+            del A
+        out["predict_f_ms"] = [time_ms(lambda: model.predict_f(xq[0]), 1)]
+        out["predict_grad_ms"] = [time_ms(lambda: model.predict_grad(xq[1]), 1)]
+        mean, var = model.predict_f(xq[0])
+        gmean, gvar = model.predict_grad(xq[1])
+        out["launches"] = read_counts()
+    out["rbf_gram_shapes"] = shapes
+    out["peak_mem_gb"] = max(out["peak_mem_gb"], torch.cuda.max_memory_allocated() / 1e9)
+    N = out["joint"]
+    out["factor_bound"] = bound_ms(2 * N * N * 4, N ** 3 / 3, "float32")
+    print(f"# derivative n={DG_N} d={D} (joint {N}) Rbf-ARD f32: value-and-grad {out['value_and_grad_ms']:.1f} ms; stages "
+          f"{', '.join(f'{k} {v:.2f} ms' for k, v in out['stages_ms'].items())} (the factor's bound "
+          f"{out['factor_bound'][0]:.2f} ms, {out['factor_bound'][1]}); predict_f per {Q} {out['predict_f_ms'][0]:.1f} "
+          f"ms, predict_grad per {Q} {out['predict_grad_ms'][0]:.1f} ms (each refactors, as in the JAX package); peak "
+          f"{out['peak_mem_gb']:.3f} GB; launches {out['launches']}", flush=True)
+    check(np.isfinite(loss) and np.isfinite(grad).all(), "non-finite derivative GP loss or gradient")
+    check(mean.shape == (Q, 1) and np.isfinite(mean).all() and (var >= -1e-3).all(), "derivative GP predict_f")
+    check(gmean.shape == (Q, D) and np.isfinite(gmean).all() and (gvar >= -1e-3).all(), "derivative GP predict_grad")
+    check(out["launches"]["rbf_gram"] > 0, "the derivative path never launched rbf_gram")
+    del model
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = derivative_card_vs_cpu(torch)
+    return out
+
+
+def derivative_card_vs_cpu(torch):
+    """Float64 at n = DG_CHECK_N, d = DG_CHECK_D: loss, gradient, predict_f
+    and predict_grad, the card against the CPU, to F64_REL_TOL."""
+    xq = np.random.RandomState(29).randn(16, DG_CHECK_D)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = derivative_model(torch, DG_CHECK_N, DG_CHECK_D, np.float64, device=device)
+        with default_dtype(torch, torch.float64):
+            loss, grad = iterative_value_and_grad(torch, model)
+            runs[device] = (np.array([loss]), grad, *model.predict_f(xq), *model.predict_grad(xq))
+    rels = [rel_gap(a, b) for a, b in zip(runs["cuda"], runs["cpu"])]
+    print(f"# derivative f64 n={DG_CHECK_N} d={DG_CHECK_D}: card vs CPU max relative gaps loss {rels[0]:.3e}, gradient "
+          f"{rels[1]:.3e}, predict_f {rels[2]:.3e} / {rels[3]:.3e}, predict_grad {rels[4]:.3e} / {rels[5]:.3e} (tol "
+          f"{F64_REL_TOL})", flush=True)
+    check(all(r <= F64_REL_TOL for r in rels), f"derivative f64 card vs CPU: {rels}")
+    return rels
+
+
+def variant_model(torch, name, n, dtype, device=None):
+    """TPR (Gaussian(0.1), ν = 5), WarpedGPR (3 tanh terms) or LaplaceGP
+    (Bernoulli, probit) on make_data(n, D): y for TPR, exp(y) for the
+    warped GP, y > 0 for the Laplace GP; Rbf-ARD; Params in ``dtype``."""
+    from gptorch_tpu_torch import kernels, likelihoods
+    from gptorch_tpu_torch.models import TPR, LaplaceGP, WarpedGPR
+
+    x, y, _ = make_data(n, D, np.float64)
+    with default_dtype(torch, torch.float64 if dtype == np.float64 else torch.float32):
+        k = kernels.Rbf(D, ARD=True)
+        if name == "tpr":
+            return TPR(x.astype(dtype), y.astype(dtype), k, likelihood=likelihoods.Gaussian(0.1), device=device)
+        if name == "warped":
+            return WarpedGPR(x.astype(dtype), np.exp(y).astype(dtype), k, likelihood=likelihoods.Gaussian(0.1),
+                             device=device)
+        return LaplaceGP(x.astype(dtype), (y > 0).astype(dtype), k, device=device)
+
+
+def variant_kappa(torch, model):
+    """A bound on the condition number of the matrix the model factors, in
+    float64: K + σ²I (λ_max by 30 power iterations over σ²) for TPR and the
+    warped GP; B = I + √W K √W ≤ 1 + max W·λ_max(K) for the Laplace GP."""
+    with torch.no_grad():
+        x = model.X.double()
+        ell = model.kernel.length_scales.value.double()
+        var = model.kernel.variance.value.double().reshape(())
+        K = var * torch.exp(-0.5 * torch.cdist(x / ell, x / ell).square())
+        v = torch.ones(x.shape[0], 1, dtype=torch.float64, device=x.device)
+        for _ in range(30):
+            v = K @ v
+            lam_max = float(v.norm())
+            v /= lam_max
+        del K
+        if hasattr(model, "num_newton"):
+            _, _, _, sw, _, _ = model._laplace_state(model.X, model.Y)
+            return 1.0 + float(sw.max()) ** 2 * lam_max
+        noise = float(model.likelihood.variance.value)
+        return (lam_max + noise) / noise
+
+
+def exact_variants_phase(torch):
+    """TPR, the warped GP and the Laplace GP, each its own path in the launch
+    counts (the float32-against-float64 runs at half n run outside them);
+    see the module docstring, phase 26."""
+    from gptorch_tpu_torch.functions import cholesky
+
+    out = {}
+    rng = np.random.RandomState(30)
+    xq = [rng.randn(Q, D).astype(np.float32) for _ in range(2)]
+    torch.cuda.synchronize()
+    with gram_launch_shapes() as shapes:
+        for name, n in (("tpr", EV_N), ("warped", EV_N), ("laplace", EV_LAPLACE_N)):
+            torch.cuda.reset_peak_memory_stats()
+            model = variant_model(torch, name, n, np.float32)
+            check(model.device.type == "cuda", f"{name} did not land on the card")
+            o = out[name] = {"n": n, "d": D, "dtype": "float32", "launches": {}}
+            with counted(o["launches"]):
+                loss, grad = iterative_value_and_grad(torch, model)
+                o["value_and_grad_ms"] = time_ms(lambda: iterative_value_and_grad(torch, model), 1)
+                o["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                with torch.no_grad():
+                    o["forward_ms"] = time_ms(model.loss, 1)
+                    if name != "laplace":  # K1's Gram with the noise, the adaptive probe, the blocked factor
+                        kyy = model._kyy if name == "warped" else (lambda x: model.kernel.K(x, diag=model._sigma2()))
+                        o["factor_ms"] = time_ms(lambda: cholesky(kyy(model.X)), 1)
+                    o["predict_f_ms"] = time_ms(lambda: model.predict_f(xq[0]), 1)
+                    mean, var = model.predict_f(xq[0])
+                    if name == "warped":
+                        o["predict_quantiles_ms"] = time_ms(lambda: model.predict_quantiles(xq[1]), 1)
+                        qs = model.predict_quantiles(xq[1])
+                        check(all(np.isfinite(q).all() for q in qs) and (qs[0] <= qs[1]).all()
+                              and (qs[1] <= qs[2]).all(), "warped predict_quantiles")
+            del model
+            torch.cuda.empty_cache()
+            half = variant_model(torch, name, n // 2, np.float32)
+            kappa = variant_kappa(torch, half)
+            half64 = variant_model(torch, name, n // 2, np.float64)
+            o["f32_vs_f64"] = value_and_grad_f32_vs_f64(torch, half, half64)
+            o["f32_tol"] = f32_tol(kappa)
+            if name == "laplace":
+                tols = (LAPLACE_F32_TOL["loss"], LAPLACE_F32_TOL["grad"])
+                # the controls: the float32 run at the same values with TF32
+                # products, and with its Grams in float16 and in bfloat16,
+                # against float64
+                l64, g64 = iterative_value_and_grad(torch, half64)
+                o["controls"] = {}
+                for control, context in (("tf32", tf32_allowed(torch)),
+                                         ("f16_gram", rounded_rbf_grams(torch, torch.float16)),
+                                         ("bf16_gram", rounded_rbf_grams(torch, torch.bfloat16)),
+                                         ("biased_gram", scaled_rbf_grams(1 + 2.0 ** -11))):
+                    with context:
+                        lc, gc = iterative_value_and_grad(torch, half)
+                    o["controls"][control] = (abs(lc - l64) / abs(l64), rel_gap(gc, g64))
+            else:
+                tols = (o["f32_tol"],) * 2
+            del half64
+            extra = f", predict_quantiles per {Q} {o['predict_quantiles_ms']:.1f} ms" if name == "warped" else ""
+            stages = f" (forward {o['forward_ms']:.1f} ms" + (f", of it the Gram and the adaptive factor {o['factor_ms']:.1f} ms)"
+                                                             if "factor_ms" in o else ")")
+            controls = ("; controls: with TF32 products allowed {:.3e} / {:.3e}, with K1's Grams rounded to float16 "
+                        "{:.3e} / {:.3e}, to bfloat16 {:.3e} / {:.3e}, scaled by 1 + 2^-11 {:.3e} / {:.3e} (the last "
+                        "must fail a limit)".format(*o["controls"]["tf32"], *o["controls"]["f16_gram"],
+                                                    *o["controls"]["bf16_gram"], *o["controls"]["biased_gram"])
+                        if name == "laplace" else "")
+            print(f"# exact variant {name} n={n} d={D} Rbf-ARD f32: value-and-grad {o['value_and_grad_ms']:.1f} ms{stages}; "
+                  f"predict_f per {Q} {o['predict_f_ms']:.1f} ms (each refactors, as in the JAX package){extra}; peak "
+                  f"{o['peak_mem_gb']:.3f} GB; launches {o['launches']}; at n={n // 2} loss f32 vs f64 relative "
+                  f"{o['f32_vs_f64'][0]:.3e}, gradient {o['f32_vs_f64'][1]:.3e} (tol {tols[0]:.3e} / {tols[1]:.3e}; "
+                  f"4*u*kappa = {o['f32_tol']:.3e}, kappa {kappa:.3e}){controls}", flush=True)
+            check(np.isfinite(loss) and np.isfinite(grad).all(), f"non-finite {name} loss or gradient")
+            check(mean.shape == (Q, 1) and np.isfinite(mean).all() and (var >= -1e-3).all(), f"{name} predict_f")
+            check(o["f32_vs_f64"][0] <= tols[0] and o["f32_vs_f64"][1] <= tols[1],
+                  f"{name} f32 vs f64: {o['f32_vs_f64']} > {tols}")
+            if name == "laplace":
+                gaps = o["controls"]["biased_gram"]
+                check(gaps[0] > tols[0] or gaps[1] > tols[1],
+                      f"the Laplace GP's float32 limits {tols} pass its Grams scaled by 1 + 2^-11 ({gaps})")
+            check(o["launches"]["rbf_gram"] > 0, f"the {name} path never launched rbf_gram")
+            del half
+            torch.cuda.empty_cache()
+    out["rbf_gram_shapes"] = shapes
+    out["peak_mem_gb"] = max(out[k]["peak_mem_gb"] for k in ("tpr", "warped", "laplace"))
+    out["card_vs_cpu"] = exact_variants_card_vs_cpu(torch)
+    return out
+
+
+def exact_variants_card_vs_cpu(torch):
+    """Float64 at n = EV_CHECK_N: each variant's loss, gradient and
+    predict_f (the warped GP's quantiles too), the card against the CPU,
+    to F64_REL_TOL."""
+    xq = np.random.RandomState(31).randn(16, D)
+    rels = {}
+    for name in ("tpr", "warped", "laplace"):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            model = variant_model(torch, name, EV_CHECK_N, np.float64, device=device)
+            with default_dtype(torch, torch.float64):
+                loss, grad = iterative_value_and_grad(torch, model)
+                extra = model.predict_quantiles(xq) if name == "warped" else ()
+                runs[device] = (np.array([loss]), grad, *model.predict_f(xq), *extra)
+        rels[name] = [rel_gap(a, b) for a, b in zip(runs["cuda"], runs["cpu"])]
+    print(f"# exact variants f64 n={EV_CHECK_N}: card vs CPU max relative gaps (loss, gradient, predict_f mean, var"
+          f"[, quantiles]) {rels} (tol {F64_REL_TOL})", flush=True)
+    check(all(r <= F64_REL_TOL for v in rels.values() for r in v), f"exact variants f64 card vs CPU: {rels}")
+    return rels
+
+
+def fleet_phases(torch):
+    """The fleet, multi-output, derivative and exact-variant phases, and
+    K1's shapes on them checked against gram_phase's cases; returns their
+    results, the launches of each of their seven paths (counted over the
+    path's own runs only), and the seconds they took together."""
+    t0 = time.perf_counter()
+    out = {"ensemble": ensemble_phase(torch), "multioutput": multioutput_phase(torch),
+           "derivative": derivative_phase(torch), "exact_variants": exact_variants_phase(torch)}
+    check_gram_coverage(set().union(*(result["rbf_gram_shapes"] for result in out.values())))
+    paths = {"ensemble": out["ensemble"]["launches"],
+             **{name: out["multioutput"][name]["launches"] for name in ("icm", "lmc")},
+             "derivative": out["derivative"]["launches"],
+             **{name: out["exact_variants"][name]["launches"] for name in ("tpr", "warped", "laplace")}}
+    seconds = time.perf_counter() - t0
+    print(f"# ensemble, multioutput, derivative and exact-variant phases: {seconds:.1f} s together; launches by path "
+          f"{paths}", flush=True)
+    return out, paths, seconds
+
+
 def build_kernels():
     """Builds the four kernel sources of the package on ``sys.path`` (one
     nvcc each, all started together) and loads them: (seconds, (gram,
@@ -4060,23 +4955,43 @@ def main() -> int:
             print(f"# ptxas lowrank_contractions {'float32' if t == 'f' else 'float64'} {KINDS[int(kind)]} MAXD={maxd} "
                   f"P={p}: {regs} registers, {stores} bytes spill stores, {loads} bytes spill loads", flush=True)
 
+    phase_s, last = {}, [time.perf_counter()]
+
+    def done(name):
+        """Records the seconds since the last phase ended under ``name``."""
+        now = time.perf_counter()
+        phase_s[name] = round(now - last[0], 1)
+        last[0] = now
+
     gram_rows, contract_rows, mvm_rows, lowrank_rows = kernel_phases(torch, sys.modules[__name__], ops)
+    done("kernels")
     serving = serving_phase(torch, gram, contract)
+    done("serving")
     training = training_phase(torch, gram, contract)
+    done("training")
     general_training = general_training_phase(torch, gram, contract)
+    done("general_training")
     observe_loop = observe_loop_phase(torch, gram, contract)
+    done("observe_loop")
     svgp, svgp_training = svgp_training_phase(torch, gram, contract)
     vfe_serving = sparse_serving_phase(torch, gram, contract, svgp, "vfe")
     svgp_serving = sparse_serving_phase(torch, gram, contract, svgp, "svgp")
     del svgp
     torch.cuda.empty_cache()
     svgp_training["card_vs_cpu"] = sparse_card_vs_cpu(torch, gram, contract)
+    done("sparse")
     svgp_captured = svgp_captured_phase(torch, gram, contract, svgp_training)
     dkl = dkl_studentt_svgp_phase(torch, gram, contract)
-    zoo_grams = zoo_grams_phase(torch, gram, contract)
-    zoo_training = zoo_training_phase(torch, gram, contract)
+    done("svgp_captured_and_dkl")
+    # the iterative check's CPU side (minutes on the host, half the cores)
+    # starts with the zoo phases, whose readings the card bounds, so that it
+    # is done when phase 15 needs it and the host-bound readings above ran
+    # on an idle host
     reference = start_iterative_reference()
     try:
+        zoo_grams = zoo_grams_phase(torch, gram, contract)
+        zoo_training = zoo_training_phase(torch, gram, contract)
+        done("zoo")
         it_model, it_queries, iterative_training = iterative_training_phase(torch)
         iterative_serving = iterative_serving_phase(torch, it_model, it_queries)
         del it_model
@@ -4084,8 +4999,14 @@ def main() -> int:
         iterative_training["card_vs_cpu"] = iterative_card_vs_cpu(torch, reference)
     finally:
         stop_process(reference[0])
+    done("iterative")
     latent, latent_s = latent_and_vecchia_phases(torch)
+    done("latent_and_vecchia")
     structured, structured_s = structured_phases(torch)
+    done("structured")
+    fleet, fleet_paths, fleet_s = fleet_phases(torch)
+    done("fleet")
+    print(f"# seconds by phase group: {phase_s}", flush=True)
 
     paths = {"serving": serving["launches"], "training": training["launches"],
              "general_training": general_training["launches"], "observe_loop": observe_loop["launches"],
@@ -4095,8 +5016,10 @@ def main() -> int:
              "zoo_training": zoo_training["launches"], "iterative_training": iterative_training["launches"],
              "iterative_serving": iterative_serving["launches"],
              **{name: result["launches"] for name, result in latent.items()},
-             **{name: result["launches"] for name, result in structured.items()}}
+             **{name: result["launches"] for name, result in structured.items()},
+             **fleet_paths}
     g, c = gram_rows[0], contract_rows[0]
+    gb = next(r for r in gram_rows if r.get("batch") and r["dtype"] == "float32" and r["case"] == "fleet K")
     m9, lr = mvm_rows["timed"][9], lowrank_rows["timed"][IT_PROBES + 1]
     kernels_line = {"kernels": [
         {
@@ -4114,6 +5037,11 @@ def main() -> int:
             "library_ms": None,
             "shape": [g["n1"], g["n2"], D],
             "dtype": g["dtype"],
+            "batched_shape": [gb["batch"], gb["n1"], gb["n2"], gb["d"]],
+            "batched_ms": gb["ms"],
+            "batched_plain_ms": gb["plain_ms"],
+            "batched_bound_ms": gb["bound_ms"],
+            "batched_max_abs_err": gb["max_abs_err"],
         },
         {
             "name": "radial_contractions",
@@ -4183,7 +5111,9 @@ def main() -> int:
           f"GB (their phases {latent_s:.1f} s), statespace {structured['statespace']['peak_mem_gb']:.3f} GB (n = "
           f"{SS_N_LONG}: {structured['statespace']['long']['peak_mem_gb']:.3f} GB), kronecker "
           f"{structured['kronecker']['peak_mem_gb']:.3f} GB, ski {structured['ski']['peak_mem_gb']:.3f} GB (their "
-          f"phases {structured_s:.1f} s); "
+          f"phases {structured_s:.1f} s), ensemble {fleet['ensemble']['peak_mem_gb']:.3f} GB, multioutput "
+          f"{fleet['multioutput']['peak_mem_gb']:.3f} GB, derivative {fleet['derivative']['peak_mem_gb']:.3f} GB, exact "
+          f"variants {fleet['exact_variants']['peak_mem_gb']:.3f} GB (their phases {fleet_s:.1f} s); "
           f"launches count each captured step's recorded launches once per "
           f"replay; total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels_line), flush=True)

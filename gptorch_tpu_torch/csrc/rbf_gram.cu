@@ -1,7 +1,10 @@
-// Radial (RBF) Gram matrix on Hopper:
+// Radial (RBF) Gram matrices on Hopper, B of them in one launch:
 //
-//   out[i, j] = var * exp(-0.5 * max(sum_q (x1[i, q] - x2[j, q])^2, 0))
-//               (+ diag where i == j, when sym != 0)
+//   out[b, i, j] = var[b] * exp(-0.5 * max(sum_q (x1[b, i, q] - x2[b, j, q])^2, 0))
+//                  (+ diag[b] where i == j, when sym != 0)
+//
+// for x1 (B, n1, d), x2 (B, n2, d), out (B, n1, n2), all contiguous; a
+// single Gram is the case B = 1.
 //
 // Replaces the Pallas TPU kernel gptorch_tpu/ops/pallas_gram.py:_rbf_tile_kernel
 // (called through rbf_gram there).  Same function, not the same blocking.
@@ -9,8 +12,11 @@
 // What bounds it.  At d = 8 the kernel does about 3d + 3 = 27 flops for every
 // output element it writes, far below the card's float32 rate per byte, so
 // the n1 * n2 write is the bound: for n = 32768 in float32 that is 4.29 GB,
-// about 1.28 ms at 3.35 TB/s.  The design therefore writes every output once,
+// about 1.28 ms at 3.35 TB/s; for a fleet of 256 Grams of 512^2 it is
+// 268 MB, about 0.080 ms.  The design therefore writes every output once,
 // coalesced, and reads the inputs only from shared memory inside the loop.
+// One launch covers the whole batch: a fleet's 256 small Grams would
+// otherwise be 256 launches of 64 blocks each, too few to fill 132 SMs.
 //
 // Design.
 //  * One block of 256 threads computes one 64 x 64 output tile.  Thread
@@ -25,8 +31,16 @@
 //  * r^2 is summed from direct differences, not from |a|^2 + |b|^2 - 2 a.b:
 //    no cancellation, and an exact 0 on the diagonal of a symmetric Gram
 //    (the matmul identity leaves +-eps there).  The clamp at 0 stays anyway.
-//  * var and diag come from a 2-element device array, so changing them
+//  * var[b] and diag[b] come from a (B, 2) device array, so changing them
 //    needs no host synchronisation and no rebuild.
+//  * The member b is blockIdx.z; a grid holds at most 65535 in z, so a
+//    larger batch repeats the row tiles along y (b = blockIdx.z + gridDim.z *
+//    (blockIdx.y / row tiles)).  Each block offsets its three pointers to
+//    its member once, 64-bit (B * n1 * n2 passes 2^31 for a fleet of 256
+//    Grams of 4096^2), and then runs the single Gram's tile unchanged.  One
+//    Gram launches an instance without that indexing (kBatched false), the
+//    single-Gram kernel as it was: a version that indexed every launch ran
+//    the flagship Gram markedly slower (PERF.md §6).
 //  * Ragged n1, n2 are masked at the store; no divisibility is required.
 //
 // Plain C interface, loaded with ctypes.  Each entry point launches on the
@@ -44,24 +58,39 @@ constexpr int kThreads = 256;
 constexpr int kRowStride = kThreads / kTileN;             // 4
 constexpr int kRowsPerThread = kTileM / kRowStride;       // 16
 constexpr int kChunk = 8;                                 // coordinates per stage
+constexpr int kMaxGrid = 65535;                           // grid y and z
 
 __device__ __forceinline__ float exp_t(float v) { return expf(v); }
 __device__ __forceinline__ double exp_t(double v) { return exp(v); }
 __device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
 
-template <typename T>
+template <typename T, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 rbf_gram_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
                 const T* __restrict__ scal, T* __restrict__ out,
-                int n1, int n2, int d, int sym) {
+                int batch, int n1, int n2, int d, int sym, int row_tiles) {
   __shared__ T s1[kTileM][kChunk];        // x1 rows of the tile
   __shared__ T s2[kChunk][kTileN + 1];    // x2 rows of the tile, transposed
+
+  // The member: blockIdx.z, plus gridDim.z for each time the row tiles
+  // repeat along y (a batch past the grid's 65535 in z).  One Gram
+  // (kBatched false) compiles to the single-Gram kernel, member 0.
+  int b = 0;
+  int tile_y = blockIdx.y;
+  if (kBatched) {
+    b = blockIdx.z + gridDim.z * (blockIdx.y / row_tiles);
+    if (b >= batch) return;  // the same for the whole block
+    tile_y = blockIdx.y % row_tiles;
+    x1 += (int64_t)b * n1 * d;
+    x2 += (int64_t)b * n2 * d;
+    out += (int64_t)b * n1 * n2;
+  }
 
   const int tid = threadIdx.x;
   const int tx = tid % kTileN;
   const int ty = tid / kTileN;
-  const int row0 = blockIdx.y * kTileM;
+  const int row0 = tile_y * kTileM;
   const int col0 = blockIdx.x * kTileN;
 
   T acc[kRowsPerThread];
@@ -81,10 +110,10 @@ rbf_gram_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
     __syncthreads();
 #pragma unroll
     for (int q = 0; q < kChunk; ++q) {
-      const T b = s2[q][tx];
+      const T bq = s2[q][tx];
 #pragma unroll
       for (int a = 0; a < kRowsPerThread; ++a) {
-        const T diff = s1[ty + a * kRowStride][q] - b;
+        const T diff = s1[ty + a * kRowStride][q] - bq;
         acc[a] = fma_t(diff, diff, acc[a]);
       }
     }
@@ -93,8 +122,8 @@ rbf_gram_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
 
   const int col = col0 + tx;
   if (col >= n2) return;
-  const T var = scal[0];
-  const T dg = scal[1];
+  const T var = scal[2 * (int64_t)b];
+  const T dg = scal[2 * (int64_t)b + 1];
 #pragma unroll
   for (int a = 0; a < kRowsPerThread; ++a) {
     const int row = row0 + ty + a * kRowStride;
@@ -108,11 +137,16 @@ rbf_gram_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
 }
 
 template <typename T>
-int launch(const T* x1, const T* x2, const T* scal, T* out, int n1, int n2,
-           int d, int sym, void* stream) {
-  const dim3 grid((n2 + kTileN - 1) / kTileN, (n1 + kTileM - 1) / kTileM);
-  rbf_gram_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x1, x2, scal, out, n1, n2, d, sym);
+int launch(const T* x1, const T* x2, const T* scal, T* out, int batch, int n1,
+           int n2, int d, int sym, void* stream) {
+  const int row_tiles = (n1 + kTileM - 1) / kTileM;
+  const int z = batch < kMaxGrid ? batch : kMaxGrid;
+  const int64_t y = (int64_t)row_tiles * ((batch + z - 1) / z);
+  if (y > kMaxGrid) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid((n2 + kTileN - 1) / kTileN, static_cast<unsigned>(y), z);
+  auto kernel = batch == 1 ? rbf_gram_kernel<T, false> : rbf_gram_kernel<T, true>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x1, x2, scal, out, batch, n1, n2, d, sym, row_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -121,20 +155,24 @@ int launch(const T* x1, const T* x2, const T* scal, T* out, int n1, int n2,
 extern "C" {
 
 int rbf_gram_f32(const float* x1, const float* x2, const float* scal,
-                 float* out, int n1, int n2, int d, int sym, void* stream) {
-  return launch<float>(x1, x2, scal, out, n1, n2, d, sym, stream);
+                 float* out, int batch, int n1, int n2, int d, int sym,
+                 void* stream) {
+  return launch<float>(x1, x2, scal, out, batch, n1, n2, d, sym, stream);
 }
 
 int rbf_gram_f64(const double* x1, const double* x2, const double* scal,
-                 double* out, int n1, int n2, int d, int sym, void* stream) {
-  return launch<double>(x1, x2, scal, out, n1, n2, d, sym, stream);
+                 double* out, int batch, int n1, int n2, int d, int sym,
+                 void* stream) {
+  return launch<double>(x1, x2, scal, out, batch, n1, n2, d, sym, stream);
 }
 
 const char* rbf_gram_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Rows of x1 one launch can cover (gridDim.y is at most 65535).
+// Rows of x1 one launch can cover for one Gram (gridDim.y is at most 65535;
+// a batch past 65535 Grams takes row tiles times ceil(B / 65535) of it, and
+// a launch past that returns cudaErrorInvalidConfiguration).
 int rbf_gram_max_rows() { return 65535 * kTileM; }
 
 }  // extern "C"

@@ -8,10 +8,16 @@ Jitter policies (see :mod:`gptorch_tpu_torch.settings`):
 
 * ``adaptive`` -- the reference gptorch's escalation: the bare matrix first,
   then absolute jitters ``10**(-max_jitter_tries+i)``.  The JAX package
-  picks the level with an on-device NaN probe; here a host loop over the
-  same schedule probes with ``torch.linalg.cholesky_ex`` on a detached copy
-  and picks the same level.  The differentiated factorization then runs
-  once, at that level.
+  picks the level with an on-device NaN probe, ``vmap``ped over a batch;
+  here a host loop over the same schedule probes with one batched
+  ``torch.linalg.cholesky_ex`` per level on a detached copy, only the
+  matrices that failed going on to the next level, and picks the same
+  level for each matrix (one host read per level tried, whatever the
+  batch).  Under ``torch.func.vmap`` the probe runs on the whole mapped
+  batch (:class:`_AdaptiveJitter`).  The differentiated factorization then
+  runs once, each matrix at its level: a matrix that needed none is
+  factored bare, so its factor is differentiated only through the branch
+  it took, as in the JAX package.
 * ``fixed`` -- one relative jitter ``fixed_jitter * mean(diag(A))``, detached.
 * ``none`` -- factor as is.
 """
@@ -74,32 +80,68 @@ def _chol_raw(a, blocked: bool = True):
     return L.masked_fill((info != 0)[..., None, None], float("nan"))
 
 
-def _factors(a) -> bool:
-    """Whether ``a`` has a finite Cholesky factor (the NaN probe)."""
-    L, info = torch.linalg.cholesky_ex(a)
-    return bool(info == 0) and bool(torch.isfinite(L).all())
+def _jitter_levels(a):
+    """The smallest jitter (0, or a level of the schedule) that gives a
+    finite factor of each matrix of the detached ``a`` (..., n, n); the
+    largest level where none does.  Returns (jitters of shape
+    ``a.shape[:-2]``, whether any matrix needs one).  One batched
+    ``cholesky_ex`` and one host read per level tried: the bare attempt,
+    then each level for the matrices still failing."""
+    a = a.detach()
+    batch = a.shape[:-2]
+    flat = a.reshape((-1,) + tuple(a.shape[-2:]))
+
+    def failing(m):
+        L, info = torch.linalg.cholesky_ex(m)
+        return (info != 0) | ~torch.isfinite(L).all(dim=-1).all(dim=-1)
+
+    todo = torch.nonzero(failing(flat)).flatten().cpu()
+    jitter = torch.zeros(flat.shape[0], dtype=a.dtype, device=a.device)
+    if todo.numel() == 0:
+        return jitter.reshape(batch), False
+    schedule = _jitter_schedule(a.dtype, a.device)
+    for level in schedule:
+        rows = todo.to(a.device)
+        still = failing(add_diag(flat[rows], level)).cpu()
+        jitter[rows[~still.to(a.device)]] = level
+        todo = todo[still]
+        if todo.numel() == 0:
+            break
+    jitter[todo.to(a.device)] = schedule[-1]
+    return jitter.reshape(batch), True
 
 
 def _select_jitter(a):
-    """The smallest jitter (0, or a level of the schedule) that gives a
-    finite factor of the detached ``a``; the largest level if none does."""
-    a = a.detach()
-    if _factors(a):
-        return None
-    schedule = _jitter_schedule(a.dtype, a.device)
-    for jitter in schedule:
-        if _factors(add_diag(a, jitter)):
-            return jitter
-    return schedule[-1]
+    """:func:`_jitter_levels`'s jitters alone: 0 for a matrix that factors
+    bare."""
+    return _jitter_levels(a)[0]
+
+
+class _AdaptiveJitter(torch.autograd.Function):
+    """:func:`_select_jitter` as a non-differentiable function,
+    whose ``vmap`` rule probes the whole mapped batch at once (the host
+    loop cannot run on one mapped matrix)."""
+
+    @staticmethod
+    def forward(a):
+        return _select_jitter(a)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def vmap(info, in_dims, a):
+        return _AdaptiveJitter.apply(a.movedim(in_dims[0], 0)), 0
 
 
 def cholesky(a, policy: str | None = None, blocked: bool = True):
     """Lower-triangular Cholesky factor with configurable jitter robustness.
 
-    ``blocked=False`` forces ``torch.linalg.cholesky_ex`` at every n (see
-    :func:`_chol_raw`): on the card cuSOLVER factors the n = 32768 Gram
-    faster than the blocked route, so the port's one-time factorizations
-    pass it."""
+    ``a`` may carry leading batch axes.  ``blocked=False`` forces
+    ``torch.linalg.cholesky_ex`` at every n (see :func:`_chol_raw`): on the
+    card cuSOLVER factors the n = 32768 Gram faster than the blocked route,
+    so the port's one-time factorizations pass it."""
     a = torch.as_tensor(a)
     policy = policy if policy is not None else settings.config.jitter_policy
     if policy == "none":
@@ -108,11 +150,10 @@ def cholesky(a, policy: str | None = None, blocked: bool = True):
         scale = torch.mean(torch.diagonal(a, dim1=-2, dim2=-1), dim=-1)
         return _chol_raw(add_diag(a, settings.config.fixed_jitter * scale.detach()), blocked)
     if policy == "adaptive":
-        if a.ndim != 2:
-            flat = a.reshape((-1,) + tuple(a.shape[-2:]))
-            return torch.stack([cholesky(m, policy="adaptive", blocked=blocked) for m in flat]).reshape(a.shape)
-        jitter = _select_jitter(a)
-        return _chol_raw(a if jitter is None else add_diag(a, jitter), blocked)
+        if torch._C._functorch.is_batchedtensor(a):
+            return _chol_raw(add_diag(a, _AdaptiveJitter.apply(a.detach())), blocked)
+        jitter, needed = _jitter_levels(a)
+        return _chol_raw(add_diag(a, jitter) if needed else a, blocked)
     raise ValueError(f"Unknown jitter policy {policy!r}")
 
 

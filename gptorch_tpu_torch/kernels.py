@@ -83,6 +83,16 @@ class Kernel(Module):
     def Kdiag(self, X):
         raise NotImplementedError
 
+    def pair(self, a, b):
+        """k(a, b) for two single inputs (d,), a 0-d tensor, in torch ops
+        that ``torch.func`` differentiates in either mode: what the
+        derivative GP's ∂k and ∂²k blocks are taken of (a Gram kernel such
+        as K1 has no forward-mode rule).  By default ``K`` on the two rows;
+        Rbf gives its scalar formula, and every kernel that holds others
+        (sums, products, the wrappers, ChangePoints, MultiFidelity) composes
+        their ``pair``, so none reaches the Gram kernel."""
+        return self.K(a[None, :], b[None, :])[0, 0]
+
     def _validate_ard_shape(self, x, ARD=None):
         """Broadcast a scalar-or-vector hyperparameter against input_dim;
         ``ARD=None`` infers it from the value's shape."""
@@ -211,10 +221,18 @@ class Rbf(Stationary):
     def K(self, X, X2=None, diag=None):
         """:param diag: added on the diagonal of the symmetric Gram (the
         noise variance of ``K(X, X) + σ²I``), fused into the kernel's write
-        on the card."""
+        on the card.
+
+        ``X`` (B, n1, d) and ``X2`` (B, n2, d) give the B Grams (B, n1, n2)
+        in one launch (the Vecchia GP's neighbour Grams)."""
         ell = self.length_scales.value
         x2 = None if X2 is None else (X2 / ell).contiguous()
         return rbf_gram((X / ell).contiguous(), x2, var=_scalar(self.variance), diag=diag)
+
+    def pair(self, a, b):
+        """σ² exp(−½ Σ((a − b)/ℓ)²) in torch ops (see :meth:`Kernel.pair`)."""
+        r2 = torch.sum(torch.square((a - b) / self.length_scales.value))
+        return _scalar(self.variance) * torch.exp(-0.5 * r2)
 
 
 SquaredExponential = Rbf
@@ -422,6 +440,10 @@ class ActiveDims(Kernel):
     def K(self, X, X2=None):
         return self.base.K(self._slice(X), self._slice(X2))
 
+    def pair(self, a, b):
+        dims = list(self.dims)
+        return self.base.pair(a[dims], b[dims])
+
     def Kdiag(self, X):
         return self.base.Kdiag(self._slice(X))
 
@@ -451,6 +473,9 @@ class DeepKernel(Kernel):
 
     def K(self, X, X2=None):
         return self.base.K(self.net(X), None if X2 is None else self.net(X2))
+
+    def pair(self, a, b):
+        return self.base.pair(self.net(a[None, :])[0], self.net(b[None, :])[0])
 
     def Kdiag(self, X):
         return self.base.Kdiag(self.net(X))
@@ -486,6 +511,9 @@ class InputWarp(Kernel):
 
     def K(self, X, X2=None):
         return self.base.K(self.warp(X), None if X2 is None else self.warp(X2))
+
+    def pair(self, a, b):
+        return self.base.pair(self.warp(a[None, :])[0], self.warp(b[None, :])[0])
 
     def Kdiag(self, X):
         return self.base.Kdiag(self.warp(X))
@@ -550,6 +578,17 @@ class MultiFidelity(Kernel):
         out = 0.0
         for t, k in enumerate(self._levels()):
             out = out + C[t][s1[:, None], s2[None, :]] * k.K(x1, x2)
+        return out
+
+    def pair(self, a, b):
+        # the levels as one-hot rows, not indices: torch.func.vmap cannot
+        # index by a mapped tensor
+        C = self._coeff(a)
+        levels = torch.arange(self.num_levels, device=a.device)
+        e1, e2 = ((levels == s.to(torch.long)).to(a.dtype) for s in (a[-1], b[-1]))
+        out = 0.0
+        for t, k in enumerate(self._levels()):
+            out = out + (e1 @ C[t] @ e2) * k.pair(a[:-1], b[:-1])
         return out
 
     def Kdiag(self, X):
@@ -675,6 +714,13 @@ class ChangePoints(Kernel):
             out = out + (w1[:, i : i + 1] * w2[None, :, i]) * k.K(X, X2)
         return out
 
+    def pair(self, a, b):
+        w1, w2 = self._weights(a[None, :])[0], self._weights(b[None, :])[0]
+        out = 0.0
+        for i, k in enumerate(self._kernels()):
+            out = out + w1[i] * w2[i] * k.pair(a, b)
+        return out
+
     def Kdiag(self, X):
         w = self._weights(X)
         out = 0.0
@@ -737,6 +783,9 @@ class Product(Combination):
     def K(self, X, X2=None):
         return self.kern1.K(X, X2) * self.kern2.K(X, X2)
 
+    def pair(self, a, b):
+        return self.kern1.pair(a, b) * self.kern2.pair(a, b)
+
     def Kdiag(self, X):
         return self.kern1.Kdiag(X) * self.kern2.Kdiag(X)
 
@@ -744,6 +793,9 @@ class Product(Combination):
 class Sum(Combination):
     def K(self, X, X2=None):
         return self.kern1.K(X, X2) + self.kern2.K(X, X2)
+
+    def pair(self, a, b):
+        return self.kern1.pair(a, b) + self.kern2.pair(a, b)
 
     def Kdiag(self, X):
         return self.kern1.Kdiag(X) + self.kern2.Kdiag(X)

@@ -1,12 +1,18 @@
 from .base import GPModel
+from .derivative import DerivativeGPR
+from .ensemble import GPEnsemble
 from .gplvm import GPLVM
 from .gpr import GPR
 from .kronecker import GridGPR
+from .laplace import LaplaceGP
+from .multioutput import ICM, LMC
 from .posterior import (
     FantasyGPRChain,
     GPRPosterior,
     GridGPRPosterior,
+    ICMPosterior,
     IterativeGPRPosterior,
+    LMCPosterior,
     LowRankPosterior,
     Posterior,
     ServingGPRPosterior,
@@ -17,24 +23,34 @@ from .posterior import (
     gplvm_posterior,
     gpr_posterior,
     iterative_gpr_posterior,
+    lmc_posterior,
     svgp_posterior,
     vfe_posterior,
 )
 from .ski import SKIGPR, SKIPosterior
 from .sparse_gpr import FITC, SVGP, VFE
 from .statespace import StateSpaceGPR
+from .studentt import TPR
 from .vecchia import VecchiaGPR
+from .warped import TanhWarp, WarpedGPR
 
 __all__ = [
+    "DerivativeGPR",
     "FITC",
     "FantasyGPRChain",
+    "GPEnsemble",
     "GPLVM",
     "GPModel",
     "GPR",
     "GPRPosterior",
     "GridGPR",
     "GridGPRPosterior",
+    "ICM",
+    "ICMPosterior",
     "IterativeGPRPosterior",
+    "LMC",
+    "LMCPosterior",
+    "LaplaceGP",
     "LowRankPosterior",
     "Posterior",
     "SKIGPR",
@@ -45,12 +61,16 @@ __all__ = [
     "ServingLowRankPosterior",
     "ServingSVGPPosterior",
     "StateSpaceGPR",
+    "TPR",
+    "TanhWarp",
     "VFE",
     "VecchiaGPR",
+    "WarpedGPR",
     "fitc_posterior",
     "gplvm_posterior",
     "gpr_posterior",
     "iterative_gpr_posterior",
+    "lmc_posterior",
     "svgp_posterior",
     "vfe_posterior",
 ]

@@ -651,3 +651,87 @@ class GridGPRPosterior(Posterior):
         ks, axs, qs = self._pieces()
         sigma2 = self.likelihood.variance.value.reshape(())
         return grid_predict(ks, axs, qs, self.alpha, self.lam, sigma2, x_new, diag)
+
+
+class ICMPosterior(Posterior):
+    """Cached ICM posterior: the input-space and coregionalization
+    eigendecompositions (the O(n³ + p³) work) once; each predict is
+    O(nt·n·p) (diagonal) or O((nt·p)²·n·p) (joint)."""
+
+    def __init__(self, kernel, likelihood, X, alpha, lx, qx, lb, qb, B):
+        super().__init__(kernel, likelihood, None)
+        self.X = X
+        self.alpha = alpha  # (n, p) = K_joint⁻¹ vec(Y) in matrix form
+        self.lx, self.qx, self.lb, self.qb, self.B = lx, qx, lb, qb, B
+
+    def _pieces(self):
+        return (self.alpha, self.lx, self.qx, self.lb, self.qb, self.B,
+                self.likelihood.variance.value.reshape(()))
+
+    def _predict(self, x_new, diag=True):
+        from .multioutput import _icm_predict
+
+        if not diag:
+            raise NotImplementedError(
+                "ICM full joint covariance across points AND outputs: use predict_f_joint(x_new)"
+            )
+        return _icm_predict(self.kernel, self.X, *self._pieces(), x_new)
+
+    @_coerce_io
+    def predict_f_joint(self, x_new):
+        """Joint (point × output) posterior; see ``ICM.predict_f_joint``."""
+        from .multioutput import _icm_joint
+
+        return _icm_joint(self.kernel, self.X, *self._pieces(), x_new)
+
+    def predict_f_joint_samples(self, x_new, n_samples: int = 1, generator=None):
+        """Output-correlated joint draws (S, nt, p) from the cached
+        eigendecompositions."""
+        from .multioutput import _joint_samples
+
+        return _joint_samples(self, x_new, n_samples, generator)
+
+
+class LMCPosterior(Posterior):
+    """LMC posterior: per latent the cached chol(Kuu_l), L⁻¹m_l and
+    L⁻¹L_ql, mixed by W; each predict is O(L·m²·n*)."""
+
+    def __init__(self, kernels, likelihood, mean_function, Z, Ls, Linv_ms, betas, W):
+        super().__init__(kernels, likelihood, mean_function)
+        self.Z = Z
+        self.Ls = Ls  # (L, m, m)
+        self.Linv_ms = Linv_ms  # (m, L)
+        self.betas = betas  # (L, m, m)
+        self.W = W  # (p, L)
+
+    @property
+    def kernels(self):
+        return self.kernel
+
+    def _predict(self, x_new, diag=True):
+        if not diag:
+            raise NotImplementedError("LMC full joint covariance: use diag")
+        mus, svars = [], []
+        for l, k in enumerate(self.kernels):
+            alpha = trtrs(k.K(self.Z, x_new), self.Ls[l]).T  # (n*, m)
+            gamma = alpha @ self.betas[l]
+            mus.append(alpha @ self.Linv_ms[:, l])
+            svars.append(k.Kdiag(x_new) - torch.sum(torch.square(alpha), dim=1)
+                         + torch.sum(torch.square(gamma), dim=1))
+        mu = torch.stack(mus, dim=1)  # (n*, L)
+        s = torch.stack(svars, dim=1)
+        return mu @ self.W.T + self.mean_function(x_new), s @ torch.square(self.W).T
+
+
+@torch.no_grad()
+def lmc_posterior(model) -> LMCPosterior:
+    """Factorize an LMC's L latents once into an :class:`LMCPosterior`."""
+    z = model.Z.value.detach().clone()
+    Ls, Linv_ms, betas = [], [], []
+    for l, k in enumerate(model.kernels):
+        L = cholesky(model._kuu(z, k))
+        Ls.append(L)
+        Linv_ms.append(trtrs(model.q_mu.value[:, l : l + 1], L)[:, 0])
+        betas.append(trtrs(model.q_chol.value[l], L))
+    return LMCPosterior(model.kernels, model.likelihood, model.mean_function, z, torch.stack(Ls),
+                        torch.stack(Linv_ms, dim=1), torch.stack(betas), model.W.value.detach().clone())

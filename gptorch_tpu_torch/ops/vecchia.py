@@ -14,14 +14,13 @@ Every conditional is an independent (m, m) solve, so one chunk of rows is
 a gather of its neighbours, their (c, m, m) Gram, one batched
 ``torch.linalg.cholesky_ex`` and batched triangular solves; chunks are a
 Python loop over rows (c ≤ ``chunk``), which bounds memory at (chunk, m, m)
-per temporary.  The neighbour Grams are batched torch ops
-(:func:`batched_gram`): the JAX package maps the kernel's ``K`` over the
-chunk, which the port's :class:`~gptorch_tpu_torch.kernels.Rbf` cannot do
-on the card (its Gram kernel takes 2-D inputs), so Rbf applies its own map
-to batched squared distances and every other kernel is mapped by
-``torch.func.vmap``.  The ordering and the neighbour search run once on the
-host in numpy and ``scipy.spatial.cKDTree`` (copies of the JAX package's
-functions).
+per temporary.  The neighbour Grams (:func:`batched_gram`) are one
+batched launch of the Gram kernel for an
+:class:`~gptorch_tpu_torch.kernels.Rbf`, whose ``K`` takes the chunk's
+batch axis; any other kernel's ``K`` is mapped over the chunk with
+``torch.func.vmap``, as the JAX package maps every kernel's.  The
+ordering and the neighbour search run once on the host in numpy and
+``scipy.spatial.cKDTree`` (copies of the JAX package's functions).
 """
 
 from __future__ import annotations
@@ -32,18 +31,16 @@ import torch
 from .. import kernels as _k
 from ..functions import _chol_raw
 
+
 def batched_gram(kernel, a, b=None):
     """``kernel.K`` over a leading batch dimension: (c, m, d) [, (c, m2, d)]
-    -> (c, m, m2).  Rbf applies σ²·exp(−r²/2) to its batched scaled
-    squared distances (its ``K`` is the Gram kernel, which takes 2-D
-    inputs); sums and products recurse; any other kernel's ``K`` is mapped
-    by ``torch.func.vmap``, as the JAX package maps every kernel's."""
+    -> (c, m, m2).  An Rbf's ``K`` takes the batch itself (one batched
+    launch of its Gram kernel on the card); every other kernel's is mapped
+    by ``torch.func.vmap``.  For an Rbf the map's own cost on the host, per
+    call, outweighs the launch it makes (``chip_smoke.py``'s vecchia
+    yardstick times both routes on the card; PERF.md)."""
     if isinstance(kernel, _k.Rbf):
-        return kernel.variance.value.reshape(()) * torch.exp(-0.5 * kernel.squared_dist(a, b))
-    if isinstance(kernel, _k.Sum):
-        return batched_gram(kernel.kern1, a, b) + batched_gram(kernel.kern2, a, b)
-    if isinstance(kernel, _k.Product):
-        return batched_gram(kernel.kern1, a, b) * batched_gram(kernel.kern2, a, b)
+        return kernel.K(a, b)
     if b is None:
         return torch.func.vmap(kernel.K)(a)
     return torch.func.vmap(kernel.K)(a, b)

@@ -13,7 +13,9 @@ follow from the ordinary ones (g_M, g_S) through S = (η₂ − η₁η₁ᵀ)/d
     θ₁ ← θ₁ − γ·dL/dη₁,            S ← (S⁻¹ + 2γ·g_S/dy)⁻¹,   M ← S θ₁
 
 With a Gaussian likelihood and full batches, one step at γ = 1 lands on
-the optimal q(u): the SVGP ELBO then equals the collapsed VFE bound.
+the optimal q(u): the SVGP ELBO then equals the collapsed VFE bound.  A
+stacked q (LMC's ``q_mu`` (m, L) with ``q_chol`` (L, m, m)) takes one such
+update per latent, each a dy = 1 distribution.
 
 The port works in place: each step computes the loss with M and S as leaf
 tensors (the model's q parameters replaced for that evaluation through
@@ -140,7 +142,15 @@ def make_natgrad_step(
         g_Ms, g_Ss, g_hyper = grads[:k], grads[k : 2 * k], grads[2 * k :]
         with torch.no_grad():
             for (mn, cn), M, S, Lq, g_M, g_S in zip(groups, Ms, Ss, Lqs, g_Ms, g_Ss):
-                M_new, S_new = _nat_update(M, S, Lq, g_M, g_S, gamma)
+                if Lq.ndim == 3:
+                    # stacked per-latent q (LMC): M (m, L), chol (L, m, m);
+                    # each latent an independent dy = 1 distribution
+                    new = [_nat_update(M[:, l : l + 1], S[l], Lq[l], g_M[:, l : l + 1], g_S[l], gamma)
+                           for l in range(Lq.shape[0])]
+                    M_new = torch.cat([m for m, _ in new], dim=1)
+                    S_new = torch.stack([s for _, s in new])
+                else:
+                    M_new, S_new = _nat_update(M, S, Lq, g_M, g_S, gamma)
                 params[mn].set_raw(params[mn].bijector.inverse(M_new))
                 params[cn].set_raw(params[cn].bijector.inverse(cholesky(S_new, blocked=False)))
         for p, g in zip(hyper_params, g_hyper):

@@ -917,6 +917,33 @@ def _vecchia_card():
                       num_neighbors=16, chunk=1024, device="cuda")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_vecchia_neighbour_grams_one_launch(cuda, dtype):
+    """ops.vecchia.batched_gram of an Rbf on the card: one batched K1 launch
+    for a chunk's Grams and one for its cross columns, equal to the CPU's
+    (float32 2e-5 of var, float64 1e-12), and its gradient too."""
+    from gptorch_tpu_torch.ops import vecchia as vops
+
+    rng = np.random.RandomState(7)
+    a, b = rng.rand(300, 16, 3), rng.rand(300, 1, 3)
+    tol = 2e-5 if dtype == torch.float32 else 1e-12
+    out = {}
+    for device in ("cuda", "cpu"):
+        k = kernels.Rbf(3, ARD=True, length_scales=[0.3, 0.4, 0.5], variance=1.3).to(device=device, dtype=dtype)
+        ta, tb = (torch.as_tensor(v, dtype=dtype, device=device) for v in (a, b))
+        before = gram.rbf_gram.launches
+        knn, kx = vops.batched_gram(k, ta), vops.batched_gram(k, ta, tb)
+        launched = gram.rbf_gram.launches - before
+        (knn.sum() + kx.sum()).backward()
+        out[device] = (knn.detach().cpu(), kx.detach().cpu(),
+                       [p.grad.cpu() for p in get_trainable(k).values()], launched)
+    assert out["cuda"][3] == 2 and out["cpu"][3] == 0
+    for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
+        torch.testing.assert_close(got, want, rtol=0, atol=tol * 1.3)
+    for got, want in zip(out["cuda"][2], out["cpu"][2]):
+        torch.testing.assert_close(got, want, rtol=tol * 10, atol=tol * 10 * float(want.abs().max()))
+
+
 @pytest.mark.parametrize("name", ["gplvm", "gplvm_large_p", "gplvm_dynamical", "vecchia"])
 def test_captured_gplvm_and_vecchia_losses_match_eager(cuda, name):
     """The GPLVM's collapsed bound (iid, large p, dynamical prior) and the
@@ -934,7 +961,9 @@ def test_captured_gplvm_and_vecchia_losses_match_eager(cuda, name):
     with _float64():
         (l0, v0, _, _, _), (l1, v1, _, run, _) = _captured_and_eager(make, "Adam", 6, 1e-2)
     assert run["captured"]
-    assert run["launches_per_step"]["rbf_gram"] == (0 if name == "vecchia" else 1 + (name == "gplvm_dynamical"))
+    # the Vecchia loss maps Rbf.K over each of its 3 chunks twice (the
+    # neighbour Grams and the cross column): one batched K1 launch each
+    assert run["launches_per_step"]["rbf_gram"] == {"vecchia": 6, "gplvm_dynamical": 2}.get(name, 1)
     torch.testing.assert_close(l1, l0, rtol=1e-10, atol=0)
     for k in v0:
         torch.testing.assert_close(v1[k], v0[k], rtol=1e-9, atol=1e-12)
@@ -1086,3 +1115,193 @@ def test_grid_gpr_launches_k1_and_card_matches_cpu(cuda):
         torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
     for a, b in zip(out["cuda"][2], out["cpu"][2]):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-9 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 2e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("b, n1, n2", [(5, 100, None), (3, 64, 37), (70000, 2, None), (2, 4099, 7)])
+def test_batched_kernel_matches_plain(cuda, dtype, tol, b, n1, n2):
+    """One launch for a batch of Grams, each with its own var and diag (a
+    kernel that read member 0's scalars would fail), against the twin; a
+    batch past the grid's 65535 in z too."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x1 = torch.randn(b, n1, 3, generator=g, device="cuda", dtype=dtype)
+    x2 = None if n2 is None else torch.randn(b, n2, 3, generator=g, device="cuda", dtype=dtype)
+    var = torch.rand(b, generator=g, device="cuda", dtype=dtype) + 0.5
+    diag = torch.rand(b, generator=g, device="cuda", dtype=dtype) if n2 is None else None
+    before = gram.rbf_gram.launches
+    out = gram.rbf_gram(x1, x2, var=var, diag=diag)
+    assert gram.rbf_gram.launches == before + 1
+    torch.cuda.synchronize()
+    want = gram.rbf_gram_plain(x1, x2, var, diag)
+    assert float((out - want).abs().max()) <= tol * 2.5
+
+
+def test_vmap_of_rbf_K_is_one_launch_and_differentiable(cuda):
+    """``torch.func.vmap`` over Rbf.K launches K1 once for the mapped Grams;
+    the gradient through the map (batched backward) equals autograd through
+    the twin, float64, 1e-10."""
+    with _float64():
+        k = kernels.Rbf(3, ARD=True, length_scales=[0.7, 1.0, 1.4]).to("cuda")
+        x = torch.randn(6, 20, 3, device="cuda", dtype=torch.float64, generator=torch.Generator("cuda").manual_seed(2))
+        before = gram.rbf_gram.launches
+        out = torch.func.vmap(lambda a: k.K(a, diag=torch.tensor(0.1, dtype=torch.float64, device="cuda")))(x)
+        assert gram.rbf_gram.launches == before + 1
+        ell, var = k.length_scales.value, k.variance.value.reshape(())
+        want = gram.rbf_gram_plain(x / ell, None, var.expand(6), torch.full((6,), 0.1, dtype=torch.float64,
+                                                                           device="cuda"))
+        torch.testing.assert_close(out, want, rtol=1e-12, atol=1e-12)
+        g = torch.randn_like(out)
+        got = torch.autograd.grad(out, [k.length_scales.raw, k.variance.raw], g)
+        ref = torch.autograd.grad(want, [k.length_scales.raw, k.variance.raw], g)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10)
+
+
+def test_ensemble_card_matches_cpu_with_one_launch(cuda):
+    """GPEnsemble of 4 members, float64: one K1 launch per value-and-grad;
+    losses, gradient and predict_f against the CPU, 1e-9; under the fixed
+    policy fit_scan captures the fleet and its losses equal the eager run's."""
+    from gptorch_tpu_torch.models import GPEnsemble
+
+    rng = np.random.RandomState(3)
+    x = rng.randn(4, 40, 2)
+    y = np.sin(x.sum(-1, keepdims=True)) + 0.1 * rng.randn(4, 40, 1)
+    xq = rng.randn(7, 2)
+    out = {}
+    with _float64():
+        for device in ("cuda", "cpu"):
+            model = GPEnsemble(x, y, kernels.Rbf(2, ARD=True), device=device)
+            before = gram.rbf_gram.launches
+            loss = model.loss()
+            loss.backward()
+            launched = gram.rbf_gram.launches - before
+            out[device] = (model.losses().detach().cpu(), [p.grad.cpu() for p in get_trainable(model).values()],
+                           model.predict_f(xq), launched)
+        assert out["cuda"][3] == 1 and out["cpu"][3] == 0
+        torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-9, atol=0)
+        for a, b in zip(out["cuda"][1], out["cpu"][1]):
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
+        for a, b in zip(out["cuda"][2], out["cpu"][2]):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-9 * np.abs(b).max())
+        runs = []
+        for captured in (True, False):
+            model = GPEnsemble(x, y, kernels.Rbf(2, ARD=True), device="cuda")
+            with settings.override(jitter_policy="fixed"):
+                runs.append(fit._fit_scan(model, "Adam", 5, 0.05, None, captured)[1].cpu())
+                assert fit.fit_scan.last_run["captured"] == captured
+        torch.testing.assert_close(runs[0], runs[1], rtol=1e-10, atol=0)
+
+
+def test_fleet_adaptive_jitter_on_the_card(cuda):
+    """The batched adaptive jitter on the card: only the indefinite member
+    is jittered, at the level the probe picks for it alone, and the factors
+    equal the CPU's (float64, 1e-10)."""
+    from gptorch_tpu_torch import functions
+
+    rng = np.random.RandomState(4)
+    mats = []
+    for b in range(4):
+        q, _ = np.linalg.qr(rng.randn(12, 12))
+        lam = np.linspace(0.5, 2.0, 12)
+        if b == 2:
+            lam[0] = -5e-4
+        mats.append((q * lam) @ q.T)
+    a = torch.as_tensor(np.stack(mats), device="cuda")
+    levels = functions._select_jitter(a).cpu().numpy()
+    alone = [float(functions._select_jitter(a[i])) for i in range(4)]
+    assert (levels == alone).all() and (levels > 0).tolist() == [False, False, True, False]
+    L = functions.cholesky(a, policy="adaptive")
+    Lv = torch.func.vmap(lambda m: functions.cholesky(m, policy="adaptive"))(a)
+    Lc = functions.cholesky(a.cpu(), policy="adaptive")
+    torch.testing.assert_close(L.cpu(), Lc, rtol=0, atol=1e-10)
+    torch.testing.assert_close(Lv.cpu(), Lc, rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("kind", ["changepoints", "multifidelity"])
+def test_derivative_gp_wrapped_rbf_card_matches_cpu(cuda, kind):
+    """DerivativeGPR whose Rbfs sit inside ChangePoints or MultiFidelity,
+    float64: the value block launches K1 on the card, the derivative blocks
+    go through the kernels' pair functions (K1 has no forward-mode rule, so
+    reaching it would raise here); loss, gradient, predict_f and
+    predict_grad against the CPU, 1e-9."""
+    from gptorch_tpu_torch.models import DerivativeGPR
+
+    rng = np.random.RandomState(6)
+    if kind == "changepoints":
+        x, xq = rng.randn(24, 1), rng.randn(5, 1)
+    else:
+        x, xq = np.c_[rng.randn(24, 2), np.arange(24) % 2], np.c_[rng.randn(5, 2), np.arange(5) % 2]
+    y, g = np.sin(x[:, :1]), np.zeros_like(x)
+    g[:, 0] = np.cos(x[:, 0])
+
+    def build(device):
+        if kind == "changepoints":
+            k = kernels.ChangePoints([kernels.Rbf(1), kernels.Rbf(1, variance=0.5)], [0.2], steepness=2.0)
+        else:
+            k = kernels.MultiFidelity([kernels.Rbf(2, ARD=True), kernels.Rbf(2)], rho=0.7)
+        return DerivativeGPR(x, y, k, g, device=device)
+
+    out = {}
+    with _float64():
+        for device in ("cuda", "cpu"):
+            model = build(device)
+            before = gram.rbf_gram.launches
+            loss = model.loss()
+            loss.backward()
+            launched = gram.rbf_gram.launches - before
+            out[device] = (float(loss.detach()), [p.grad.cpu() for p in get_trainable(model).values()],
+                           [*model.predict_f(xq), *model.predict_grad(xq)], launched)
+    assert out["cuda"][3] >= 1 and out["cpu"][3] == 0
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-9)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
+    for a, b in zip(out["cuda"][2], out["cpu"][2]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-9 * max(np.abs(b).max(), 1e-300))
+
+
+@pytest.mark.parametrize("name", ["icm", "lmc", "derivative", "tpr", "warped", "laplace"])
+def test_correlated_derivative_and_variant_models_card_match_cpu(cuda, name):
+    """ICM, LMC, the derivative GP, TPR, the warped and the Laplace GP with an
+    Rbf kernel, float64: K1 launches on the card and none on the CPU; loss,
+    gradient and predict_f against the CPU, 1e-9 (the Laplace GP 1e-7: its
+    Newton steps pick their size by the largest ψ on a grid, and near the
+    mode the ψ values tie to rounding, so the differentiated path follows
+    the device's rounding)."""
+    from gptorch_tpu_torch.models import ICM, LMC, TPR, DerivativeGPR, LaplaceGP, WarpedGPR
+
+    rng = np.random.RandomState(5)
+    x = rng.randn(30, 2)
+    y = np.sin(x[:, :1]) + 0.1 * rng.randn(30, 1)
+    xq = rng.randn(6, 2)
+
+    def build(device):
+        k = kernels.Rbf(2, ARD=True)
+        if name == "icm":
+            return ICM(x, np.c_[y, np.cos(x[:, 1:])], k, rank=1, device=device)
+        if name == "lmc":
+            return LMC(x, np.c_[y, np.cos(x[:, 1:])], k, num_latents=2, inducing_points=x[:8], device=device)
+        if name == "derivative":
+            return DerivativeGPR(x, y, k, np.cos(x), device=device)
+        if name == "tpr":
+            return TPR(x, y, k, device=device)
+        if name == "warped":
+            return WarpedGPR(x, np.exp(y), k, device=device)
+        return LaplaceGP(x, (y > 0).astype(float), k, device=device)
+
+    out = {}
+    with _float64():
+        for device in ("cuda", "cpu"):
+            model = build(device)
+            before = gram.rbf_gram.launches
+            loss = model.loss()
+            loss.backward()
+            launched = gram.rbf_gram.launches - before
+            out[device] = (float(loss.detach()), [p.grad.cpu() for p in get_trainable(model).values()],
+                           model.predict_f(xq), launched)
+    tol = 1e-7 if name == "laplace" else 1e-9
+    assert out["cuda"][3] >= 1 and out["cpu"][3] == 0
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=tol)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+    for a, b in zip(out["cuda"][2], out["cpu"][2]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=tol * max(np.abs(b).max(), 1e-300))

@@ -137,3 +137,128 @@ def test_backward_formula_matches_autograd_of_plain(sym):
     assert len(got) == len(want)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10, atol=1e-12)
+
+
+# -- a batch of Grams (one launch on the card) -----------------------------------
+
+
+def _batch(seed, b=3, n1=7, n2=5, d=3):
+    rng = np.random.RandomState(seed)
+    return (torch.as_tensor(rng.randn(b, n1, d)), torch.as_tensor(rng.randn(b, n2, d)),
+            torch.as_tensor(rng.uniform(0.5, 2.0, b)), torch.as_tensor(rng.uniform(0.01, 0.3, b)))
+
+
+@pytest.mark.parametrize("sym", [True, False])
+def test_batched_plain_is_each_members_gram(sym):
+    """The twin on (B, n, d) inputs with a var and diag per member, against
+    the JAX package's Rbf of each member (float64, 1e-12) and the explicit
+    differences: a twin that read member 0's scalars would fail."""
+    x1, x2, var, diag = _batch(3)
+    out = gram.rbf_gram(x1, None if sym else x2, var=var, diag=diag if sym else None)
+    assert out.shape == (3, 7, 7 if sym else 5)
+    for b in range(3):
+        k = jax_kernels.Rbf(3, variance=float(var[b]))
+        want = np.asarray(k.K(jnp.asarray(x1[b].numpy()), None if sym else jnp.asarray(x2[b].numpy())))
+        if sym:
+            want = want + float(diag[b]) * np.eye(7)
+        np.testing.assert_allclose(out[b].numpy(), want, rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(out[b].numpy(), _direct(x1[b].numpy(), (x1 if sym else x2)[b].numpy(),
+                                                           float(var[b]), float(diag[b]) if sym else None),
+                                   rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("sym", [True, False])
+def test_batched_backward_formula_matches_autograd_of_plain(sym):
+    """_gram_vjp over the last two axes: each member's cotangents against
+    autograd through the batched twin (float64, 1e-10)."""
+    x1, x2, var, diag = _batch(5)
+    leaves = [x1, None if sym else x2, var, diag if sym else None]
+    leaves = [None if t is None else t.clone().requires_grad_() for t in leaves]
+    out = gram.rbf_gram_plain(*leaves)
+    g = torch.as_tensor(np.random.RandomState(6).randn(*out.shape))
+    inputs = [t for t in leaves if t is not None]
+    want = torch.autograd.grad(out, inputs, grad_outputs=g)
+    got = [t for t in gram._gram_vjp(g, out.detach(), *[None if t is None else t.detach() for t in leaves])
+           if t is not None]
+    assert [t.shape for t in got] == [t.shape for t in want]
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10, atol=1e-12)
+
+
+@pytest.fixture
+def twin_launch(monkeypatch):
+    """The kernel's launch replaced by the twin, recording each launch's
+    shapes: the autograd function and its vmap rule run here as on the card."""
+    launches = []
+
+    def launch(x1, x2, var, diag):
+        launches.append((tuple(x1.shape), None if x2 is None else tuple(x2.shape), tuple(var.shape),
+                         None if diag is None else tuple(diag.shape)))
+        return gram.rbf_gram_plain(x1, x2, var, diag)
+
+    monkeypatch.setattr(gram, "_launch", launch)
+    return launches
+
+
+@pytest.mark.parametrize("sym", [True, False])
+def test_vmap_rule_makes_one_batched_launch(twin_launch, sym):
+    """``torch.func.vmap`` over the one-Gram function launches once for the
+    mapped Grams, with each member's var and diag; the gradient through the
+    map equals autograd through the batched twin (float64, 1e-10)."""
+    x1, x2, var, diag = _batch(7)
+    var.requires_grad_()
+    diag.requires_grad_()
+    x1.requires_grad_()
+    if sym:
+        out = torch.func.vmap(lambda a, v, s: gram._RbfGram.apply(a, None, v, s))(x1, var, diag)
+        want = gram.rbf_gram_plain(x1, None, var, diag)
+    else:  # x2 shared by every member, diag absent
+        out = torch.func.vmap(lambda a, v: gram._RbfGram.apply(a, x2[0], v, None))(x1, var)
+        want = gram.rbf_gram_plain(x1, x2[0].expand(3, 5, 3), var)
+    assert twin_launch == [((3, 7, 3), None if sym else (3, 5, 3), (3,), (3,) if sym else None)]
+    np.testing.assert_allclose(out.detach().numpy(), want.detach().numpy(), rtol=0, atol=0)
+    g = torch.as_tensor(np.random.RandomState(8).randn(*out.shape))
+    inputs = [x1, var, diag] if sym else [x1, var]
+    for a, b in zip(torch.autograd.grad(out, inputs, g), torch.autograd.grad(want, inputs, g)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10, atol=1e-12)
+
+
+def test_nested_vmap_and_mapped_axis(twin_launch):
+    """Nested maps join the mapped axes into one launch; a mapped axis other
+    than the first is moved in front."""
+    rng = np.random.RandomState(9)
+    x = torch.as_tensor(rng.randn(2, 4, 6, 3))
+    v = torch.as_tensor(rng.uniform(0.5, 2.0, (2, 4)))
+    out = torch.func.vmap(torch.func.vmap(lambda a, s: gram._RbfGram.apply(a, None, s, torch.zeros(()))))(x, v)
+    assert twin_launch == [((8, 6, 3), None, (8,), (8,))]
+    want = gram.rbf_gram_plain(x.reshape(8, 6, 3), None, v.reshape(8)).reshape(2, 4, 6, 6)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=0, atol=0)
+    out = torch.func.vmap(lambda a: gram._RbfGram.apply(a, None, torch.ones(()), torch.zeros(())),
+                          in_dims=1)(x[0].transpose(0, 1).contiguous())
+    np.testing.assert_allclose(out.numpy(), gram.rbf_gram_plain(x[0], None, 1.0).numpy(), rtol=0, atol=0)
+
+
+def test_vmap_of_rbf_K_on_the_cpu_takes_the_twin():
+    """``vmap(kernel.K)`` over CPU tensors runs the twin (no launch)."""
+    from gptorch_tpu_torch import kernels
+
+    x1, _, _, _ = _batch(10)
+    k = kernels.Rbf(3, variance=1.4, length_scales=0.8)
+    before = gram.rbf_gram.launches
+    out = torch.func.vmap(k.K)(x1)
+    assert gram.rbf_gram.launches == before
+    np.testing.assert_allclose(out.detach().numpy(), np.stack([k.K(x).detach().numpy() for x in x1]),
+                               rtol=1e-13, atol=1e-14)
+
+
+@pytest.mark.parametrize(
+    "x1, x2",
+    [
+        (torch.zeros(2, 4, 2), torch.zeros(3, 3, 2)),  # batch sizes differ
+        (torch.zeros(2, 4, 2), torch.zeros(3, 2)),  # a batch against one Gram
+        (torch.zeros(2, 2, 4, 2), None),  # two batch axes
+    ],
+)
+def test_batched_rejects(x1, x2):
+    with pytest.raises(ValueError):
+        gram.rbf_gram(x1, x2, var=1.0)

@@ -16,6 +16,18 @@ And two gaps of the port's surface against the JAX package:
    ``dtype`` and ``numel()``, and the functional updates ``with_raw`` and
    ``with_value``, which return a new Param and leave the old one as it
    was (in the port a new module, whose raw is a detached copy).
+
+And two repairs that the fleet of GPs needs (the JAX package ``vmap``s
+both):
+
+6. The adaptive jitter runs batched: one batched ``cholesky_ex`` per level
+   tried over the matrices still failing, one host read per level, and
+   each matrix gets the level the JAX package's probe picks for it (also
+   under ``torch.func.vmap``); a matrix's factor is differentiated only
+   through the branch it took.
+7. K1's autograd function has the ``setup_context`` form and a ``vmap``
+   rule (tests/test_torch_gram.py holds the rule; here ``torch.func.grad``
+   runs through it).
 """
 
 import jax
@@ -31,7 +43,7 @@ from gptorch_tpu.models import GPR as JaxGPR
 from gptorch_tpu.models import SVGP as JaxSVGP
 from gptorch_tpu.module import get_trainable as jax_get_trainable
 from gptorch_tpu.module import with_trainable as jax_with_trainable
-from gptorch_tpu_torch import bijectors, convert, kernels, likelihoods, param
+from gptorch_tpu_torch import bijectors, convert, kernels, likelihoods, param, settings
 from gptorch_tpu_torch.models import GPR, SVGP
 from gptorch_tpu_torch.module import get_trainable
 from gptorch_tpu_torch.ops import contract
@@ -241,3 +253,125 @@ def test_with_value_replaces_a_models_param():
     z = tm.Z.with_raw(np.ones((3, D)))
     tm.Z = z
     assert get_trainable(tm)["Z"] is z.raw
+
+
+# -- 6. the batched adaptive jitter ------------------------------------------------
+
+
+def _fleet_matrices():
+    """Four symmetric 12² matrices: three SPD, the third with one eigenvalue
+    at −5e-4, so the adaptive policy must jitter it alone (the bare factor
+    and the levels up to 1e-4 fail; 1e-3 leaves it SPD, conditioned ~4e3)."""
+    rng = np.random.RandomState(11)
+    out = []
+    for b in range(4):
+        q, _ = np.linalg.qr(rng.randn(12, 12))
+        lam = np.linspace(0.5, 2.0, 12)
+        if b == 2:
+            lam[0] = -5e-4
+        out.append((q * lam) @ q.T)
+    return np.stack(out)
+
+
+@pytest.fixture
+def cholesky_ex_calls(monkeypatch):
+    calls = []
+    real = torch.linalg.cholesky_ex
+
+    def counted(a, *args, **kwargs):
+        calls.append(tuple(a.shape))
+        return real(a, *args, **kwargs)
+
+    monkeypatch.setattr(torch.linalg, "cholesky_ex", counted)
+    return calls
+
+
+@pytest.mark.parametrize("mapped", [False, True])
+def test_fleet_adaptive_jitter_is_each_members_level(cholesky_ex_calls, mapped):
+    """Only the singular member is jittered, at the level the JAX package's
+    vmapped probe picks; the factors equal the JAX ones (1e-10).
+    The probe factors the whole batch once, then the failing member once
+    per level tried: cholesky_ex runs levels tried + 1 times (the last the
+    factor itself), not once per member."""
+    from gptorch_tpu import functions as jax_functions
+    from gptorch_tpu_torch import functions
+
+    a = _fleet_matrices()
+    want_levels = [float(jax_functions._select_jitter(jnp.asarray(m))) for m in a]
+    assert want_levels[2] > 0 and want_levels[0] == want_levels[1] == want_levels[3] == 0.0
+    t = torch.as_tensor(a)
+    if mapped:
+        L = torch.func.vmap(lambda m: functions.cholesky(m, policy="adaptive"))(t)
+    else:
+        L = functions.cholesky(t, policy="adaptive")
+    tried = 2 + int(round(np.log10(want_levels[2]))) + settings.config.max_jitter_tries  # bare, then levels
+    assert want_levels[2] == pytest.approx(1e-3) and tried == 9
+    assert len(cholesky_ex_calls) == tried + 1
+    assert cholesky_ex_calls[0] == (4, 12, 12) and all(c == (1, 12, 12) for c in cholesky_ex_calls[1:-1])
+    assert cholesky_ex_calls[-1] == ((12, 12) if mapped else (4, 12, 12))  # the factor (mapped: its logical shape)
+    np.testing.assert_array_equal(functions._select_jitter(t).numpy(), want_levels)
+    want = np.asarray(jax_functions.cholesky(jnp.asarray(a), policy="adaptive"))
+    got = L.numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(got[2] @ got[2].T, a[2] + want_levels[2] * np.eye(12), rtol=0, atol=1e-13)
+
+
+def test_fleet_adaptive_jitter_gradient_follows_each_branch():
+    """d/ds Σ log diag chol(s·A_b) through the adaptive policy, per member,
+    against the JAX package's (the jittered member differentiates the
+    jittered factor, the others the bare one), 1e-9 relative; the same
+    under ``torch.func.vmap``."""
+    from gptorch_tpu import functions as jax_functions
+    from gptorch_tpu_torch import functions
+
+    a = _fleet_matrices()
+
+    def jax_f(s):
+        L = jax_functions.cholesky(s[:, None, None] * jnp.asarray(a), policy="adaptive")
+        return jnp.sum(jnp.log(jnp.diagonal(L, axis1=-2, axis2=-1)))
+
+    want = np.asarray(jax.grad(jax_f)(jnp.ones(4)))
+    for mapped in (False, True):
+        s = torch.ones(4, dtype=torch.float64, requires_grad=True)
+        m = s[:, None, None] * torch.as_tensor(a)
+        if mapped:
+            L = torch.func.vmap(lambda x: functions.cholesky(x, policy="adaptive"))(m)
+        else:
+            L = functions.cholesky(m, policy="adaptive")
+        torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1))).backward()
+        assert np.isfinite(s.grad.numpy()).all()
+        np.testing.assert_allclose(s.grad.numpy(), want, rtol=1e-9)
+
+
+def test_fixed_and_none_policies_read_no_host_under_vmap():
+    """The fixed and none policies map with no host read (so a captured
+    fleet step holds them): vmap of a probe-free cholesky equals the
+    batched call."""
+    from gptorch_tpu_torch import functions
+
+    t = torch.as_tensor(_fleet_matrices()[[0, 1, 3]])
+    for policy in ("fixed", "none"):
+        got = torch.func.vmap(lambda m: functions.cholesky(m, policy=policy))(t)
+        np.testing.assert_allclose(got.numpy(), functions.cholesky(t, policy=policy).numpy(), rtol=0, atol=1e-15)
+
+
+# -- 7. K1 under torch.func.grad ----------------------------------------------------
+
+
+def test_rbf_gram_function_runs_under_func_grad(monkeypatch):
+    """``torch.func.grad`` through K1's autograd function (its launch
+    replaced by the twin, as on the card) equals the twin's gradient."""
+    from gptorch_tpu_torch.ops import gram
+
+    monkeypatch.setattr(gram, "_launch", lambda x1, x2, v, d: gram.rbf_gram_plain(x1, x2, v, d))
+    x = torch.as_tensor(np.random.RandomState(12).randn(6, 2))
+
+    def via_function(v):
+        return torch.sum(gram._RbfGram.apply(x, None, v, torch.zeros((), dtype=torch.float64)) ** 2)
+
+    def via_twin(v):
+        return torch.sum(gram.rbf_gram_plain(x, None, v) ** 2)
+
+    v = torch.tensor(1.3, dtype=torch.float64)
+    assert float(torch.func.grad(via_function)(v)) == pytest.approx(float(torch.func.grad(via_twin)(v)), rel=1e-12)

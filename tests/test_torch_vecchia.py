@@ -146,8 +146,9 @@ def test_host_orderings_and_neighbours_match_jax():
 
 
 def test_batched_gram_is_the_kernels_gram():
-    """batched_gram against kernel.K on each batch member, for Rbf, the
-    four other radial kinds and Linear (mapped by vmap) and a sum."""
+    """batched_gram (``torch.func.vmap`` of kernel.K) against kernel.K on
+    each batch member, for Rbf, the four other radial kinds, Linear and a
+    sum."""
     rng = np.random.RandomState(6)
     a, b = torch.as_tensor(rng.randn(3, 5, D)), torch.as_tensor(rng.randn(3, 2, D))
     cases = [_kernel(kernels, "Rbf"), _kernel(kernels, "Matern12"), _kernel(kernels, "Matern32"),
