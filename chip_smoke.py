@@ -198,6 +198,44 @@ parent.
    Phases 23-26 print the seconds they took together; in the kernels line
    the fleet, ICM, LMC, the derivative GP, TPR, the warped GP and the
    Laplace GP are each a path of their own.
+27. heteroscedastic: HeteroscedasticSVGP at bench_svgp.py's cell (its
+   inputs and inducing inputs, y = sin(x₀) + e^{g/2}·ε with g = −4 +
+   2·tanh(x₁), Rbf-ARD for both latents, batch 4096, fixed jitter): a
+   value-and-grad and its stages (each latent's moments, the ELBO),
+   fit_scan Adam (captured), natural steps over both q groups, predict_y
+   and predict_log_density per 256.  Checks: float32 against float64 loss
+   and gradient on one batch (HS_F32_TOL, which its controls with TF32
+   products and with K1's Grams scaled by 1 + 2⁻¹¹ must each fail); in
+   float64 at n = 2048, m = 64 the card against the CPU on one explicit
+   batch.
+28. deep: DeepGP in Salimbeni & Deisenroth's UCI setup on the cell's data
+   (M = 100 per layer, widths (9, 9): three layers, one sample in
+   training, all n = 45730 points): value-and-grad, a value-and-grad on a
+   batch of 10000, fit_scan Adam (captured), predict_f per 256 with 20
+   samples; one K1 launch per layer's K(Z, F) whatever the samples (the
+   sample axis is a batched Gram), checked at S = 1 and 4.  Checks: K1's
+   gradient into F against the plain twin; in float64 at n = 512 the card
+   against the CPU with the draws held fixed.
+29. streaming: StreamingVFE (fixed seeded hyperparameters, ekernels.Rbf)
+   streaming the cell's n in batches of 4096: update per batch, the 11
+   full batches replayed as one captured CUDA graph, log_likelihood,
+   predict_f and predict_uncertain per 256, downdate; float64 on the card
+   against batch VFE on all the data, float32 against float64 with a TF32
+   control that must fail; all under the fixed jitter policy.  OnlineSGPR
+   at m = 1024: 4 steps of 60 Adam iterations in float64 under the "none"
+   jitter policy (one captured graph per has_old, reused), predict_f; the
+   same steps in float32 must go non-finite (the summary's 1e-10 floor is
+   below float32's rounding); the exactness anchor (θ and Z fixed over the
+   whole stream, float64) against batch VFE.
+30. pathwise: pathwise_gpr_samples on the exact serving model (n = 32768,
+   16 paths of 1024 features over 4096 candidates), pathwise_svgp_samples
+   on the cell's SVGP; the iterative branch on phase 15's model (8 paths;
+   K3 through the posterior's CG), run before that model is freed.
+   Checks: the samples' moments against predict_f; in float64 at n = 512
+   the card against the CPU with the draws held fixed.
+   Phases 27-30 print the seconds they took together; the heteroscedastic
+   SVGP, the deep GP, StreamingVFE, OnlineSGPR and the three samplers are
+   each a path of their own.
 
 On the card, fit_scan captures a first-order run as a CUDA graph; the
 training, general-training, SVGP and DKL phases check that it did.  Before
@@ -419,6 +457,47 @@ EV_N, EV_LAPLACE_N, EV_CHECK_N = 32768, 8192, 512
 # (the rounding averages out; the Newton steps' resolution sets the gap),
 # so the control that must fail is the Grams off by 2⁻¹¹ in one direction.
 LAPLACE_F32_TOL = {"loss": 1e-5, "grad": 3e-4}
+# Slice 14 at bench_svgp.py's sparse cell (SP_*), float32.  The
+# heteroscedastic SVGP on its inputs with y = sin(x₀) + e^{g/2}·ε, g = −4 +
+# 2·tanh(x₁); the float64 card-vs-CPU check at HS_CHECK_N, HS_CHECK_M on one
+# explicit batch of HS_CHECK_B.  The deep GP in Salimbeni & Deisenroth's
+# UCI setup (M = 100 per layer, hidden width min(30, D) = 9, three layers,
+# one sample in training, the full data): fit_scan Adam SP_STEPS a call,
+# a value-and-grad on one explicit batch of DGP_BATCH, predict_f with
+# DGP_PRED_SAMPLES passes, the launch check at DGP_LAUNCH_SAMPLES samples;
+# the float64 card-vs-CPU check at DGP_CHECK_N (S = 2, draws held fixed).
+HS_CHECK_N, HS_CHECK_M, HS_CHECK_B = 2048, 64, 512
+# The heteroscedastic SVGP's float32 loss and gradient against float64 on
+# one batch of SP_BATCH.  An H100 reads 6.6e-8 (loss) and 1.3e-7
+# (gradient), the same in every run of this phase.  Its controls, at the
+# float32 model's values against the same float64 run, each fail both
+# limits: the float32 run with TF32 products allowed reads 7.1e-7 and
+# 1.0e-5, with K1's Grams scaled by 1 + 2⁻¹¹ 1.6e-4 and 1.6e-4.  The
+# limits sit between: about 6× and 16× the readings, under the TF32
+# control by 1.8× and 5×.
+HS_F32_TOL = {"loss": 4e-7, "grad": 2e-6}
+DGP_M, DGP_WIDTHS, DGP_BATCH, DGP_PRED_SAMPLES, DGP_LAUNCH_SAMPLES, DGP_CHECK_N = 100, (9, 9), 10000, 20, 4, 512
+# StreamingVFE with its hyperparameters fixed by a seeded setting
+# (ekernels.Rbf(9, ARD) with length scales linspace(0.8, 1.6), variance 1,
+# Gaussian(ST_NOISE): the data's own noise), streaming the cell's n in
+# batches of SP_BATCH (11 full ones, then the rest), the 11 full ones also
+# as one captured CUDA graph, under the cell's fixed jitter policy.
+# OnlineSGPR at m = 1024: ON_BATCHES steps of ON_ITERS Adam iterations (lr
+# ON_LR), captured, in float64, under the "none" jitter policy: the fixed
+# policy's relative jitter on the factor of S_a lifts S_a above V_aa in
+# Kuu's near-null directions once θ has trained, and chol(V_aa − S_a) is
+# then NaN in float64 too (the same code in the JAX package).  In float32
+# the 1e-10 floor on V_aa − S_a lies below the rounding and the steps go
+# non-finite at this cell (ROADMAP §3), which the phase checks: the same
+# steps in float32 must fail.  The exactness anchor (θ and Z fixed) over the whole stream in
+# float64 with jitter ON_ANCHOR_JITTER, also under "none" (the fixed
+# policy's jitter on every factor would break the identity with batch VFE).
+ST_NOISE, ON_BATCHES, ON_ITERS, ON_LR, ON_ANCHOR_JITTER = 0.01, 4, 60, 0.05, 1e-9
+# The pathwise samplers: PW_SAMPLES paths of PW_FEATURES features over
+# PATH_CANDIDATES candidates (the exact serving model, n = 32768, d = 8;
+# the sparse cell's SVGP), PW_IT_SAMPLES on phase 15's matrix-free model;
+# the float64 card-vs-CPU check at PW_CHECK_N with the draws held fixed.
+PW_SAMPLES, PW_FEATURES, PW_IT_SAMPLES, PW_CHECK_N = 16, 1024, 8, 512
 
 
 def lowrank_tol(name, n):
@@ -526,7 +605,10 @@ def dtype_name(dtype):
 # on 100 points; GPR's K(X, X) and K(X, queries) at n = 4096; the grid
 # GP's axis Grams (64², d = 1) and cross Grams of 256 and 64 queries; the
 # single Grams of phases 23-26 (a fleet member alone, ICM, the derivative
-# GP's value block, the Laplace GP, TPR at half n).
+# GP's value block, the Laplace GP, TPR at half n); phases 27-30's: the
+# deep GP's first layer K(Z, X) (all n, a batch, queries), StreamingVFE's
+# last short batch, K(x*, Z) of the streaming models' predictions and
+# OnlineSGPR's K(Z, Z_old), and the samplers' K(x*, X) and K(x*, Z).
 GRAM_CASES = [
     ("sym+diag", N, N, True, D, True),
     ("cross", N, Q, False, D, False),
@@ -556,12 +638,23 @@ GRAM_CASES = [
     ("laplace K", EV_LAPLACE_N, EV_LAPLACE_N, True, D, False),
     ("laplace Ks", EV_LAPLACE_N, Q, False, D, False),
     ("half K", EV_N // 2, EV_N // 2, True, D, True),
+    ("dgp K0", DGP_M, SP_N, False, SP_D, False),
+    ("dgp K0 batch", DGP_M, DGP_BATCH, False, SP_D, False),
+    ("dgp K0 query", DGP_M, Q, False, SP_D, False),
+    ("Kuf tail", SP_M, SP_N % SP_BATCH, False, SP_D, False),
+    ("Ksu", Q, SP_M, False, SP_D, False),
+    ("Kzz old", SP_M, SP_M, False, SP_D, False),
+    ("path Ksx", PATH_CANDIDATES, N, False, D, False),
+    ("path Ksz", PATH_CANDIDATES, SP_M, False, SP_D, False),
+    ("path Ksx it", PATH_CANDIDATES, IT_N, False, D, False),
 ]
 # K1's batched cases, (label, B, n1, n2, symmetric, d, noise on the
 # diagonal), with a var and a diag of each member's own: the fleet's Grams
 # with its noise, and its cross Grams against shared queries; the Vecchia
 # path's neighbour Grams and cross columns of a full chunk, of the last
-# chunk (n = 200000 leaves 3392 rows) and of a query batch.
+# chunk (n = 200000 leaves 3392 rows) and of a query batch; the deep GP's
+# hidden layers' K(Z, F) over their samples (all n, a batch at S = 1 and
+# 4, the 20 samples of predict_f).
 GRAM_BATCHED_CASES = [
     ("fleet K", EN_B, EN_N, EN_N, True, EN_D, True),
     ("fleet Ks", EN_B, EN_N, Q, False, EN_D, False),
@@ -571,6 +664,10 @@ GRAM_BATCHED_CASES = [
     ("ve k last", VE_N % VE_CHUNK, VE_M, 1, False, VE_D, False),
     ("ve Knn query", Q, VE_M, VE_M, True, VE_D, False),
     ("ve k query", Q, VE_M, 1, False, VE_D, False),
+    ("dgp Kzf", 1, DGP_M, SP_N, False, SP_D, False),
+    ("dgp Kzf batch", 1, DGP_M, DGP_BATCH, False, SP_D, False),
+    ("dgp Kzf S", DGP_LAUNCH_SAMPLES, DGP_M, DGP_BATCH, False, SP_D, False),
+    ("dgp Kzf query", DGP_PRED_SAMPLES, DGP_M, Q, False, SP_D, False),
 ]
 
 
@@ -4858,6 +4955,868 @@ def fleet_phases(torch):
     return out, paths, seconds
 
 
+@contextlib.contextmanager
+def recorded_draws(torch, draws):
+    """Inside the block, ``sampling.standard_normal`` and ``uniform`` either
+    draw as usual and keep a host copy of each draw in ``draws`` (an empty
+    list) or, given a recorded list, return its draws in turn on the
+    caller's device and in its dtype: the CPU run records, the card's run
+    replays the same numbers."""
+    from gptorch_tpu_torch import sampling
+
+    saved = sampling.standard_normal, sampling.uniform
+    recording, replay = not draws, iter(list(draws))
+
+    def wrap(fn):
+        def draw(generator, shape, like):
+            if not recording:
+                return torch.as_tensor(next(replay), dtype=like.dtype, device=like.device)
+            out = fn(generator, shape, like)
+            draws.append(out.detach().cpu().numpy())
+            return out
+
+        return draw
+
+    sampling.standard_normal, sampling.uniform = wrap(saved[0]), wrap(saved[1])
+    try:
+        yield
+    finally:
+        sampling.standard_normal, sampling.uniform = saved
+
+
+def merge_counts(total, part):
+    """Adds the launches ``part`` (by kernel name) to ``total``."""
+    total.update(add_counts(total, part))
+
+
+def batch_value_and_grad(torch, model, x, y):
+    """The loss on the explicit batch (x, y) and its gradient as one float64
+    vector in sorted trainable order (zeros for a trainable it does not
+    read)."""
+    from gptorch_tpu_torch.module import get_trainable
+
+    model.zero_grad(set_to_none=True)
+    loss = model.loss(x, y)
+    loss.backward()
+    raws = get_trainable(model)
+    grads = [torch.zeros_like(raws[k]) if raws[k].grad is None else raws[k].grad for k in sorted(raws)]
+    return float(loss.detach()), np.concatenate([g.double().cpu().numpy().ravel() for g in grads])
+
+
+def trainable_values(model, spread=0.0, seed=0):
+    """``model``'s raw trainables as float64 host arrays, each moved by
+    ``spread``·N(0, 1) from RandomState(seed)."""
+    from gptorch_tpu_torch.module import get_trainable
+
+    rng = np.random.RandomState(seed)
+    values = {k: v.detach().double().cpu().numpy() for k, v in get_trainable(model).items()}
+    return {k: v + spread * rng.randn(*v.shape) for k, v in values.items()}
+
+
+def het_data(n, m, seed=0):
+    """The sparse cell's inputs and inducing inputs (sparse_data) with
+    y = sin(x₀) + e^{g/2}·ε, g = −4 + 2·tanh(x₁) (RandomState(seed + 14)),
+    float32."""
+    x, _, z = sparse_data(n, SP_D, m, np.float32, seed)
+    g = -4.0 + 2.0 * np.tanh(x[:, 1:2])
+    y = np.sin(x[:, :1]) + np.exp(0.5 * g) * np.random.RandomState(seed + 14).randn(n, 1)
+    return x, y.astype(np.float32), z
+
+
+def het_model(torch, n, m, dtype, batch_size=None, device=None):
+    from gptorch_tpu_torch import kernels
+    from gptorch_tpu_torch.models import HeteroscedasticSVGP
+
+    x, y, z = het_data(n, m)
+    with default_dtype(torch, torch.float64 if dtype == np.float64 else torch.float32):
+        return HeteroscedasticSVGP(x.astype(dtype), y.astype(dtype), kernels.Rbf(SP_D, ARD=True),
+                                   inducing_points=z.astype(dtype), batch_size=batch_size, jitter=SP_JITTER,
+                                   device=device)
+
+
+def kuu_kappa(torch, kernel, z, jitter):
+    """cond(Kuu + jitter·mean diag) from its float64 eigenvalues."""
+    from gptorch_tpu_torch.models.sparse_gpr import kuu_with_jitter
+
+    with torch.no_grad():
+        eig = torch.linalg.eigvalsh(kuu_with_jitter(kernel, z, jitter).double())
+    return float(eig[-1] / eig[0])
+
+
+def heteroscedastic_phase(torch):
+    """The heteroscedastic SVGP at the sparse cell; see the module
+    docstring, phase 27.  Its launches are those of its own runs (the
+    value-and-grad and its stages, both fit_scan calls, the natural steps,
+    the predictions); the float32-against-float64 check runs between them."""
+    from gptorch_tpu_torch import settings
+    from gptorch_tpu_torch.training.natgrad import make_natgrad_step
+
+    out = {"n": SP_N, "d": SP_D, "m": SP_M, "batch": SP_BATCH, "dtype": "float32", "launches": {}}
+    rng = np.random.RandomState(32)
+    xq = torch.as_tensor(rng.randn(Q, SP_D).astype(np.float32), device="cuda")
+    yq = torch.as_tensor(np.sin(xq.cpu().numpy()[:, :1]) + 0.1 * rng.randn(Q, 1).astype(np.float32), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with gram_launch_shapes() as shapes, settings.override(jitter_policy="fixed"):
+        model = het_model(torch, SP_N, SP_M, np.float32, batch_size=SP_BATCH)
+        check(model.device.type == "cuda", "HeteroscedasticSVGP did not land on the card")
+        xb, yb = model.X[:SP_BATCH], model.Y[:SP_BATCH]
+        with counted(out["launches"]):
+            loss, grad = iterative_value_and_grad(torch, model)
+            out["value_and_grad_ms"] = time_ms(lambda: iterative_value_and_grad(torch, model), 5)
+            with torch.no_grad():
+                out["stages_ms"] = {"f moments": time_ms(lambda: model._latent_f(xb), 5),
+                                    "g moments": time_ms(lambda: model._latent_g(xb), 5),
+                                    "ELBO (both latents, KL)": time_ms(lambda: model.log_likelihood(xb, yb), 5)}
+        out["f32_vs_f64"] = het_f32_vs_f64(torch, model, xb, yb)
+        with counted(out["launches"]):
+            out["fit_scan_step_ms"], losses, replayed = timed_fit_scan(torch, model, SP_STEPS, SP_LR,
+                                                                        "heteroscedastic", True)
+        merge_counts(out["launches"], add_counts(replayed, replayed))  # the warm call's replays and the timed one's
+        out["losses"] = losses
+        with counted(out["launches"]):
+            step, _ = make_natgrad_step(model, nat_lr=0.1)
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            out["nat_step_ms"], out["nat_losses"] = [], []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out["nat_losses"].append(float(step(gen)))
+                out["nat_step_ms"].append(1e3 * (time.perf_counter() - t0))
+            with torch.no_grad():
+                out["predict_y_ms"] = time_ms(lambda: model.predict_y(xq), 5)
+                out["predict_log_density_ms"] = time_ms(lambda: model.predict_log_density(xq, yq), 5)
+                mean, var = model.predict_y(xq)
+                lpd = model.predict_log_density(xq, yq)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["rbf_gram_shapes"] = shapes
+    st = out["stages_ms"]
+    bound, by = het_moments_bound_ms(SP_M, SP_BATCH, SP_D)
+    out["stage_bounds_ms"] = {"f moments": bound, "g moments": bound, "ELBO (both latents, KL)": 2 * bound}
+    f = out["f32_vs_f64"]
+    stages = ", ".join(f"{k} {v:.3f} ms (bound {out['stage_bounds_ms'][k]:.3f}, {by})" for k, v in st.items())
+    print(f"# heteroscedastic n={SP_N} d={SP_D} m={SP_M} batch {SP_BATCH} Rbf-ARD x2 f32: value-and-grad "
+          f"{out['value_and_grad_ms']:.3f} ms; stages on one batch: {stages}; "
+          f"fit_scan Adam (captured) {out['fit_scan_step_ms']:.3f} ms/step over {SP_STEPS}, loss {losses[0]:.1f} -> "
+          f"{losses[-1]:.1f}; natural steps over both groups {', '.join(f'{t:.1f}' for t in out['nat_step_ms'])} ms; "
+          f"predict_y per {Q} {out['predict_y_ms']:.3f} ms, predict_log_density per {Q} (32 nodes) "
+          f"{out['predict_log_density_ms']:.3f} ms; peak {out['peak_mem_gb']:.3f} GB; launches {out['launches']}; "
+          f"f32 vs f64 on one batch: loss {f['value_rel']:.3e}, gradient {f['grad_rel']:.3e} (limits {HS_F32_TOL}; "
+          f"the larger latent's kappa {f['kappa']:.3e}); controls: with TF32 products allowed "
+          f"{f['tf32'][0]:.3e} / {f['tf32'][1]:.3e}, with K1's Grams scaled by 1 + 2^-11 {f['biased_gram'][0]:.3e} / "
+          f"{f['biased_gram'][1]:.3e} (each must fail a limit)", flush=True)
+    check(np.isfinite(loss) and np.isfinite(grad).all(), "non-finite heteroscedastic loss or gradient")
+    check(all(math.isfinite(v) for v in losses + out["nat_losses"]), "non-finite heteroscedastic training loss")
+    check(np.mean(losses[-10:]) < np.mean(losses[:10]), "heteroscedastic training did not lower the loss")
+    check(bool(torch.isfinite(mean).all() and (var > 0).all() and torch.isfinite(lpd).all()),
+          "heteroscedastic predict_y / predict_log_density")
+    check(f["value_rel"] <= HS_F32_TOL["loss"] and f["grad_rel"] <= HS_F32_TOL["grad"],
+          f"heteroscedastic f32 vs f64: {f}")
+    for control in ("tf32", "biased_gram"):
+        gaps = f[control]
+        check(gaps[0] > HS_F32_TOL["loss"] or gaps[1] > HS_F32_TOL["grad"],
+              f"the heteroscedastic float32 limits {HS_F32_TOL} pass the {control} control ({gaps})")
+    check(out["launches"]["rbf_gram"] > 0, "the heteroscedastic path never launched rbf_gram")
+    del model, step
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = het_card_vs_cpu(torch)
+    return out
+
+
+def het_moments_bound_ms(m, b, d):
+    """Least time for one latent's SVGP moments and KL on a batch of b
+    (float32), in operations with a multiply-add counted as two: the factor
+    of Kuu (m³/3), L⁻¹L_q (m³), L⁻¹Kuf (m²b), αᵀβ (2m²b) and the Grams'
+    3d + 3 per entry; the inputs, q and the outputs each moved once."""
+    ops = m ** 3 / 3 + m ** 3 + 3 * m * m * b + (m * m + m * b) * (3 * d + 3)
+    return bound_ms(4 * (b * d + m * d + m + m * m + 2 * b), ops, "float32")
+
+
+def het_f32_vs_f64(torch, model, xb, yb):
+    """The loss and gradient on one explicit batch, float32 against the same
+    model in float64 on the card at the float32 one's values, and the two
+    controls of HS_F32_TOL against the same float64 run; κ, the larger
+    condition number of the two latents' Kuu, is reported."""
+    from gptorch_tpu_torch import convert
+
+    model64 = het_model(torch, SP_N, SP_M, np.float64, batch_size=SP_BATCH)
+    convert.load_trainable(model64, trainable_values(model))
+    l32, g32 = batch_value_and_grad(torch, model, xb, yb)
+    l64, g64 = batch_value_and_grad(torch, model64, xb.double(), yb.double())
+    controls = {}
+    for control, context in (("tf32", tf32_allowed(torch)), ("biased_gram", scaled_rbf_grams(1 + 2.0 ** -11))):
+        with context:
+            lc, gc = batch_value_and_grad(torch, model, xb, yb)
+        controls[control] = (abs(lc - l64) / abs(l64), rel_gap(gc, g64))
+    model.zero_grad(set_to_none=True)
+    z = model64.Z.value.detach()
+    kappa = max(kuu_kappa(torch, k, z, SP_JITTER) for k in (model64.kernel, model64.noise_kernel))
+    del model64
+    torch.cuda.empty_cache()
+    return {"value_rel": abs(l32 - l64) / abs(l64), "grad_rel": rel_gap(g32, g64), "kappa": kappa, **controls}
+
+
+def het_card_vs_cpu(torch):
+    """Float64 at n = HS_CHECK_N, m = HS_CHECK_M: the loss and gradient on
+    one explicit batch, predict_y and predict_log_density, one natural step
+    on the full data, the card against the CPU, to F64_REL_TOL."""
+    from gptorch_tpu_torch import convert
+    from gptorch_tpu_torch.module import get_trainable
+    from gptorch_tpu_torch.training.natgrad import make_natgrad_step
+
+    rng = np.random.RandomState(33)
+    xq, yq = rng.randn(16, SP_D), rng.randn(16, 1)
+    runs, values = {}, None
+    for device in ("cpu", "cuda"):
+        with default_dtype(torch, torch.float64):
+            model = het_model(torch, HS_CHECK_N, HS_CHECK_M, np.float64, device=device)
+            values = values or trainable_values(model, spread=0.05)
+            convert.load_trainable(model, values)
+            b = HS_CHECK_B
+            loss, grad = batch_value_and_grad(torch, model, model.X[:b], model.Y[:b])
+            pred = model.predict_y(xq)
+            lpd = model.predict_log_density(xq, yq)
+            step, _ = make_natgrad_step(model, nat_lr=0.3, optimizer=lambda ps: torch.optim.SGD(ps, lr=0.0))
+            step()
+            raws = get_trainable(model)
+            q = np.concatenate([raws[k].detach().cpu().numpy().ravel() for k in ("qf_mu", "qf_chol", "qg_mu",
+                                                                                  "qg_chol")])
+            runs[device] = (np.array([loss]), grad, *pred, lpd, q)
+    rels = [rel_gap(a, b) for a, b in zip(runs["cuda"], runs["cpu"])]
+    print(f"# heteroscedastic f64 n={HS_CHECK_N} m={HS_CHECK_M}: card vs CPU max relative gaps loss {rels[0]:.3e}, "
+          f"gradient {rels[1]:.3e}, predict_y {rels[2]:.3e} / {rels[3]:.3e}, predict_log_density {rels[4]:.3e}, natural "
+          f"step q {rels[5]:.3e} (tol {F64_REL_TOL})", flush=True)
+    check(all(r <= F64_REL_TOL for r in rels), f"heteroscedastic f64 card vs CPU: {rels}")
+    return rels
+
+
+def deep_model(torch, n, dtype, num_samples=1, device=None):
+    """The deep GP on the sparse cell's first n points: widths DGP_WIDTHS,
+    DGP_M inducing points per layer (k-means), Rbf-ARD per layer."""
+    from gptorch_tpu_torch.models import DeepGP
+
+    x, y, _ = sparse_data(n, SP_D, 1, np.float32)
+    with default_dtype(torch, torch.float64 if dtype == np.float64 else torch.float32):
+        return DeepGP(x.astype(dtype), y.astype(dtype), widths=DGP_WIDTHS, num_inducing=DGP_M,
+                      num_samples=num_samples, device=device)
+
+
+def deep_phase(torch):
+    """The deep GP in Salimbeni & Deisenroth's UCI setup on the sparse cell;
+    see the module docstring, phase 28.  Its launches are those of its own
+    runs; the launch checks count one value-and-grad each."""
+    from gptorch_tpu_torch import settings
+
+    out = {"n": SP_N, "d": SP_D, "m": DGP_M, "widths": list(DGP_WIDTHS), "dtype": "float32", "launches": {}}
+    rng = np.random.RandomState(34)
+    xq = [torch.as_tensor(rng.randn(Q, SP_D).astype(np.float32), device="cuda") for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with gram_launch_shapes() as shapes, settings.override(jitter_policy="fixed"):
+        t0 = time.perf_counter()
+        model = deep_model(torch, SP_N, np.float32)
+        out["build_s"] = time.perf_counter() - t0
+        check(model.device.type == "cuda", "DeepGP did not land on the card")
+        layers = model.num_layers
+        xb, yb = model.X[:DGP_BATCH], model.Y[:DGP_BATCH]
+        per_call = {}
+        for samples in (1, DGP_LAUNCH_SAMPLES):
+            model.num_samples = samples
+            c = {}
+            with counted(c):
+                if samples == 1:
+                    loss, grad = iterative_value_and_grad(torch, model)
+                else:
+                    batch_value_and_grad(torch, model, xb, yb)
+            per_call[samples] = c["rbf_gram"]
+            merge_counts(out["launches"], c)
+        model.num_samples = 1
+        out["k1_launches_per_value_and_grad"] = per_call
+        with counted(out["launches"]):
+            out["value_and_grad_ms"] = time_ms(lambda: iterative_value_and_grad(torch, model), 3)
+            out["batch_value_and_grad_ms"] = time_ms(lambda: batch_value_and_grad(torch, model, xb, yb), 3)
+            out["fit_scan_step_ms"], losses, replayed = timed_fit_scan(torch, model, SP_STEPS, SP_LR, "deep GP", True)
+        merge_counts(out["launches"], add_counts(replayed, replayed))
+        out["losses"] = losses
+        with counted(out["launches"]), torch.no_grad():
+            out["predict_f_ms"] = [time_ms(lambda: model.predict_f(b), 1) for b in xq]
+            mean, var = model.predict_f(xq[0])
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["rbf_gram_shapes"] = shapes
+    print(f"# deep GP n={SP_N} d={SP_D} widths {DGP_WIDTHS} ({layers} layers) M={DGP_M} Rbf-ARD f32: build (k-means) "
+          f"{out['build_s']:.2f} s; value-and-grad {out['value_and_grad_ms']:.2f} ms (S = 1, full data), on a batch of "
+          f"{DGP_BATCH} {out['batch_value_and_grad_ms']:.2f} ms; K1 launches per value-and-grad {per_call} (by S; one "
+          f"Kuu and one K(Z, F) per layer); fit_scan Adam (captured) {out['fit_scan_step_ms']:.3f} ms/step over "
+          f"{SP_STEPS}, loss {losses[0]:.1f} -> {losses[-1]:.1f}; predict_f per {Q} with {DGP_PRED_SAMPLES} samples "
+          f"{', '.join(f'{t:.2f}' for t in out['predict_f_ms'])} ms; peak {out['peak_mem_gb']:.3f} GB; launches "
+          f"{out['launches']}", flush=True)
+    check(np.isfinite(loss) and np.isfinite(grad).all(), "non-finite deep GP loss or gradient")
+    check(all(v == 2 * layers for v in per_call.values()),
+          f"the deep GP launched K1 {per_call} times per value-and-grad, not one Kuu and one K(Z, F) per layer")
+    check(all(math.isfinite(v) for v in losses) and np.mean(losses[-10:]) < np.mean(losses[:10]),
+          "deep GP training did not lower the loss")
+    check(bool(torch.isfinite(mean).all() and (var >= 0).all()) and tuple(mean.shape) == (Q, 1), "deep GP predict_f")
+    del model
+    torch.cuda.empty_cache()
+    out["gram_grad_into_f"] = deep_gram_grad_check(torch)
+    out["card_vs_cpu"] = deep_card_vs_cpu(torch)
+    return out
+
+
+def deep_gram_grad_check(torch):
+    """K1's batched cross Gram K(Z, F) of a hidden layer (Z repeated over
+    DGP_LAUNCH_SAMPLES samples, F (S, n, 9)) and its gradient into F, Z,
+    the length scales and the variance, against autograd through the plain
+    twin on the same inputs: float64 to F64_REL_TOL, float32 against the
+    float64 twin to 1e-4 of each gradient's largest entry."""
+    from gptorch_tpu_torch import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    S, n = DGP_LAUNCH_SAMPLES, 2048
+    base = [torch.randn(DGP_M, SP_D, generator=gen, device="cuda", dtype=torch.float64),
+            torch.randn(S, n, SP_D, generator=gen, device="cuda", dtype=torch.float64)]
+    cot = torch.randn(S, DGP_M, n, generator=gen, device="cuda", dtype=torch.float64)
+    grads = {}
+    for name, dtype, plain in (("kernel f64", torch.float64, False), ("plain f64", torch.float64, True),
+                               ("kernel f32", torch.float32, False)):
+        with default_dtype(torch, dtype):
+            k = kernels.Rbf(SP_D, ARD=True, length_scales=np.linspace(0.7, 1.5, SP_D), variance=1.3).to("cuda")
+        z, F = (t.to(dtype).clone().requires_grad_() for t in base)
+        before = read_counts()["rbf_gram"]
+        if plain:
+            from gptorch_tpu_torch.ops import gram
+
+            ell = k.length_scales.value
+            out = gram.rbf_gram_plain(z.expand(S, -1, -1) / ell, F / ell, k.variance.value.reshape(()))
+        else:
+            out = k.K(z.expand(S, -1, -1), F)
+        launched = read_counts()["rbf_gram"] - before
+        check(launched == (0 if plain else 1), f"K(Z, F) over {S} samples made {launched} launches")
+        g = torch.autograd.grad(out, [z, F, k.length_scales.raw, k.variance.raw], cot.to(dtype))
+        grads[name] = [t.double() for t in g]
+    rel = {name: max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(grads[name], grads["plain f64"]))
+           for name in ("kernel f64", "kernel f32")}
+    print(f"# deep GP K(Z, F) batched over {S} samples ({DGP_M}, {n}) d={SP_D}, one K1 launch: gradient into Z, F, "
+          f"length scales, variance against the plain twin's autograd, max relative gap f64 {rel['kernel f64']:.3e} "
+          f"(tol {F64_REL_TOL}), f32 {rel['kernel f32']:.3e} (tol 1e-4)", flush=True)
+    check(rel["kernel f64"] <= F64_REL_TOL and rel["kernel f32"] <= 1e-4, f"K1's gradient into F: {rel}")
+    return rel
+
+
+def deep_card_vs_cpu(torch):
+    """Float64 at n = DGP_CHECK_N, S = 2, the trainables spread from the
+    start and the normals held fixed (the CPU run's draws replayed on the
+    card): the ELBO, its gradient and predict_f over DGP_PRED_SAMPLES
+    passes, the card against the CPU, to F64_REL_TOL."""
+    from gptorch_tpu_torch import convert
+
+    xq = np.random.RandomState(36).randn(16, SP_D)
+    runs, draws, values = {}, [], None
+    for device in ("cpu", "cuda"):
+        with default_dtype(torch, torch.float64), recorded_draws(torch, draws):
+            model = deep_model(torch, DGP_CHECK_N, np.float64, num_samples=2, device=device)
+            values = values or trainable_values(model, spread=0.05)
+            convert.load_trainable(model, values)
+            loss, grad = iterative_value_and_grad(torch, model)
+            runs[device] = (np.array([loss]), grad, *model.predict_f(xq))
+    rels = [rel_gap(a, b) for a, b in zip(runs["cuda"], runs["cpu"])]
+    print(f"# deep GP f64 n={DGP_CHECK_N} S=2 (draws held): card vs CPU max relative gaps ELBO {rels[0]:.3e}, gradient "
+          f"{rels[1]:.3e}, predict_f {rels[2]:.3e} / {rels[3]:.3e} (tol {F64_REL_TOL})", flush=True)
+    check(all(r <= F64_REL_TOL for r in rels), f"deep GP f64 card vs CPU: {rels}")
+    return rels
+
+
+def stream_model(torch, dtype, device=None, z=None):
+    """StreamingVFE at the sparse cell's inducing inputs with the fixed
+    hyperparameters of ST_NOISE's note, Params in ``dtype``."""
+    from gptorch_tpu_torch import ekernels, likelihoods
+    from gptorch_tpu_torch.models import StreamingVFE
+
+    with default_dtype(torch, torch.float64 if dtype == np.float64 else torch.float32):
+        kernel = ekernels.Rbf(SP_D, ARD=True, length_scales=np.linspace(0.8, 1.6, SP_D))
+        return StreamingVFE(kernel, z.astype(dtype), likelihood=likelihoods.Gaussian(ST_NOISE), jitter=SP_JITTER,
+                            device=device)
+
+
+def stream_batches(torch, x, y, dtype):
+    """The cell's data on the card in ``dtype``, cut into batches of
+    SP_BATCH (the last one shorter)."""
+    xs = torch.as_tensor(x.astype(dtype), device="cuda")
+    ys = torch.as_tensor(y.astype(dtype), device="cuda")
+    return [(xs[lo : lo + SP_BATCH], ys[lo : lo + SP_BATCH]) for lo in range(0, xs.shape[0], SP_BATCH)]
+
+
+def stream_run(torch, dtype, x, y, z, xq, context=contextlib.nullcontext):
+    """Streams every batch through ``update`` (no autograd) inside
+    ``context()``: (the model, its bound, predict_f at xq).  The model is
+    built first (building one pins TF32 off)."""
+    with torch.no_grad():
+        s = stream_model(torch, dtype, z=z)
+        with context():
+            for xb, yb in stream_batches(torch, x, y, dtype):
+                s = s.update(xb, yb)
+        q = torch.as_tensor(xq.astype(dtype), device="cuda")
+        return s, float(s.log_likelihood()), [t.double().cpu().numpy() for t in s.predict_f(q)]
+
+
+def streaming_phase(torch):
+    """StreamingVFE and OnlineSGPR at the sparse cell; see the module
+    docstring, phase 29.  Each model's launches are those of its own runs;
+    the checks run between them."""
+    from gptorch_tpu_torch import settings
+
+    x, y, z = sparse_data(SP_N, SP_D, SP_M, np.float32)
+    rng = np.random.RandomState(37)
+    xq = rng.randn(Q, SP_D).astype(np.float32)
+    o = {"n": SP_N, "d": SP_D, "m": SP_M, "batch": SP_BATCH, "dtype": "float32", "launches": {}}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with gram_launch_shapes() as shapes, settings.override(jitter_policy="fixed"), torch.no_grad():
+        s = stream_model(torch, np.float32, z=z)
+        check(s.device.type == "cuda", "StreamingVFE did not land on the card")
+        batches = stream_batches(torch, x, y, np.float32)
+        full = [b for b in batches if b[0].shape[0] == SP_BATCH]
+        q = torch.as_tensor(xq, device="cuda")
+        with counted(o["launches"]):
+            ms = []
+            for xb, yb in batches:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                s = s.update(xb, yb)
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+                if len(ms) == len(full):
+                    s_full = s
+            o["update_ms"] = ms
+            o["log_likelihood_ms"] = time_ms(s.log_likelihood, 5)
+            bound = float(s.log_likelihood().detach())
+            o["predict_f_ms"] = time_ms(lambda: s.predict_f(q), 5)
+            o["predict_uncertain_ms"] = time_ms(lambda: s.predict_uncertain(q, torch.full_like(q, 0.01)), 3)
+            mean, var = s.predict_uncertain(q, torch.full_like(q, 0.01))
+            o["downdate_ms"] = time_ms(lambda: s.downdate(*batches[-1]), 5)
+            back = s.downdate(*batches[-1])
+        # the 11 full batches as one captured CUDA graph of 11 updates
+        xs_full = torch.stack([b[0] for b in full])
+        ys_full = torch.stack([b[1] for b in full])
+        s0 = stream_model(torch, np.float32, z=z)
+
+        def stream():
+            out = s0
+            for i in range(len(full)):
+                out = out.update(xs_full[i], ys_full[i])
+            return out
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            stream()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        c = {}
+        with counted(c):
+            with torch.cuda.graph(graph):
+                s_cap = stream()
+        graph.replay()
+        torch.cuda.synchronize()
+        gap = max(float(((getattr(s_cap, k) - getattr(s_full, k)).abs().max()) / getattr(s_full, k).abs().max())
+                  for k in ("phi_w", "r_w", "yy", "kdiag_sum", "n_seen"))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        o["captured_stream_ms"] = start.elapsed_time(end) / 3
+        o["launches_per_replay"] = c
+        merge_counts(o["launches"], add_counts(c, c, c, c))  # one replay to check, three timed
+        del graph
+    o["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    o["captured_vs_eager"] = gap
+    o["checks"] = stream_checks(torch, x, y, z, xq, bound)
+    f = o["checks"]
+    print(f"# streaming StreamingVFE n={SP_N} d={SP_D} m={SP_M} batches of {SP_BATCH} f32: update per batch (ms) "
+          f"{[round(v, 3) for v in ms]}, median {float(np.median(ms)):.3f}; captured stream of {len(full)} batches "
+          f"{o['captured_stream_ms']:.3f} ms ({o['captured_stream_ms'] / len(full):.3f} ms a batch; launches recorded "
+          f"per replay {c}; replayed statistics vs eager {gap:.3e}); log_likelihood {o['log_likelihood_ms']:.3f} ms; "
+          f"predict_f per {Q} {o['predict_f_ms']:.3f} ms; predict_uncertain per {Q} {o['predict_uncertain_ms']:.3f} ms; "
+          f"downdate {o['downdate_ms']:.3f} ms; peak {o['peak_mem_gb']:.3f} GB; launches {o['launches']}; f64 stream "
+          f"vs batch VFE on the card: bound {f['f64_bound_rel']:.3e}, predict_f {f['f64_mean_rel']:.3e} / "
+          f"{f['f64_var_rel']:.3e} (tol {F64_REL_TOL}); f32 vs f64: bound {f['f32_bound_rel']:.3e}, predict_f "
+          f"{f['f32_mean_rel']:.3e} / {f['f32_var_rel']:.3e} (limits {ST_F32_TOL}); the control with TF32 products: "
+          f"bound {f['tf32_bound_rel']:.3e}, predict_f {f['tf32_mean_rel']:.3e} / {f['tf32_var_rel']:.3e} (must fail a "
+          f"limit)", flush=True)
+    check(all(math.isfinite(v) for v in (bound, float(back.log_likelihood().detach()))), "non-finite streamed bound")
+    check(bool(torch.isfinite(mean).all() and (var >= 0).all()), "StreamingVFE predict_uncertain")
+    check(gap <= 1e-6, f"the captured stream's statistics differ from the eager ones: {gap}")
+    check(c["rbf_gram"] == 2 * len(full), f"a captured update recorded {c} launches, not Kuu and Kuf")
+    check(o["launches"]["rbf_gram"] > 0, "the streaming path never launched rbf_gram")
+    out = {"streaming_vfe": o}
+    del s, s_full, s_cap, s0, back, batches, full, xs_full, ys_full
+    torch.cuda.empty_cache()
+    out["online_sgpr"] = online_phase(torch, x, y, z, xq)
+    out["rbf_gram_shapes"] = shapes | out["online_sgpr"].pop("rbf_gram_shapes")
+    out["peak_mem_gb"] = max(o["peak_mem_gb"], out["online_sgpr"]["peak_mem_gb"])
+    return out
+
+
+# float32 against float64 StreamingVFE at the cell's n under the fixed
+# jitter policy (the bound relative; the predict_f mean and variance over
+# their largest entries): an H100 reads 1.3e-7, 1.8e-6 and 8.5e-6 (the
+# whitened statistics keep B = I + βΦ̃ well conditioned; the bound's β·yy −
+# β²‖c‖² cancels only to these digits at n = 45730); the limits keep a
+# factor of about 20.  Its control: the float32 stream with TF32 products
+# allowed must fail one (it reads 1.3e-6, 3.5e-4 and 8.5e-6: the means).
+ST_F32_TOL = {"bound": 4e-6, "mean": 4e-5, "var": 2e-4}
+
+
+def stream_checks(torch, x, y, z, xq, bound32):
+    """Float64 on the card: the streamed bound and predict_f against the
+    port's batch VFE on all the data, to F64_REL_TOL; float32 against that
+    float64 stream within ST_F32_TOL, and the float32 stream with TF32
+    products allowed (the control that must fail a limit); under the fixed
+    jitter policy, as the phase streams."""
+
+    from gptorch_tpu_torch import settings
+
+    with settings.override(jitter_policy="fixed"):
+        return _stream_checks(torch, x, y, z, xq, bound32)
+
+
+def _stream_checks(torch, x, y, z, xq, bound32):
+    from gptorch_tpu_torch import likelihoods
+    from gptorch_tpu_torch.models import VFE
+
+    s64, b64, (m64, v64) = stream_run(torch, np.float64, x, y, z, xq)
+    with default_dtype(torch, torch.float64), torch.no_grad():
+        vfe = VFE(x.astype(np.float64), y.astype(np.float64), s64.kernel, inducing_points=z.astype(np.float64),
+                  likelihood=likelihoods.Gaussian(ST_NOISE), jitter=SP_JITTER, device="cuda")
+        vb = float(vfe.log_likelihood())
+        vm, vv = (t.cpu().numpy() for t in vfe.predict_f(torch.as_tensor(xq.astype(np.float64), device="cuda")))
+    del vfe
+    _, _, (m32, v32) = stream_run(torch, np.float32, x, y, z, xq)
+    _, bt, (mt, vt) = stream_run(torch, np.float32, x, y, z, xq, lambda: tf32_allowed(torch))
+    out = {"f64_bound_rel": abs(b64 - vb) / abs(vb), "f64_mean_rel": rel_gap(m64, vm), "f64_var_rel": rel_gap(v64, vv),
+           "f32_bound_rel": abs(bound32 - b64) / abs(b64), "f32_mean_rel": rel_gap(m32, m64),
+           "f32_var_rel": rel_gap(v32, v64), "tf32_bound_rel": abs(bt - b64) / abs(b64), "tf32_mean_rel": rel_gap(mt, m64),
+           "tf32_var_rel": rel_gap(vt, v64)}
+    torch.cuda.empty_cache()
+    check(max(out["f64_bound_rel"], out["f64_mean_rel"], out["f64_var_rel"]) <= F64_REL_TOL,
+          f"f64 StreamingVFE vs batch VFE: {out}")
+    check(out["f32_bound_rel"] <= ST_F32_TOL["bound"] and out["f32_mean_rel"] <= ST_F32_TOL["mean"]
+          and out["f32_var_rel"] <= ST_F32_TOL["var"], f"f32 StreamingVFE vs f64: {out}")
+    check(out["tf32_bound_rel"] > ST_F32_TOL["bound"] or out["tf32_mean_rel"] > ST_F32_TOL["mean"]
+          or out["tf32_var_rel"] > ST_F32_TOL["var"], f"the StreamingVFE float32 limits pass TF32 products: {out}")
+    return out
+
+
+def online_model(torch, dtype, z, jitter=SP_JITTER, device="cuda"):
+    """OnlineSGPR at the cell's inducing inputs (trainable), Rbf-ARD,
+    Gaussian(0.1), Params in ``dtype``."""
+    from gptorch_tpu_torch import kernels, likelihoods
+    from gptorch_tpu_torch.models import OnlineSGPR
+
+    with default_dtype(torch, torch.float64 if dtype == np.float64 else torch.float32):
+        return OnlineSGPR(kernels.Rbf(SP_D, ARD=True), z.astype(dtype), likelihood=likelihoods.Gaussian(0.1),
+                          jitter=jitter, device=device)
+
+
+def online_steps(torch, x, y, z, xq):
+    """ON_BATCHES steps of ON_ITERS Adam iterations in float64 under the
+    "none" jitter policy: (the model, ms per call, the launches its
+    captured graphs replayed, predict_f at xq).  A call replays the graph
+    it captured or, where it captured none, the last one (the same batch
+    size and has_old)."""
+    from gptorch_tpu_torch import settings
+    from gptorch_tpu_torch.training import fit
+
+    model = online_model(torch, np.float64, z)
+    ms, replayed, used, seen = [], {}, None, set()
+    with settings.override(jitter_policy="none"):
+        for i in range(ON_BATCHES):
+            lo = i * SP_BATCH
+            xb, yb = x[lo : lo + SP_BATCH].astype(np.float64), y[lo : lo + SP_BATCH].astype(np.float64)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.step(xb, yb, fit_iters=ON_ITERS, learning_rate=ON_LR)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            check(fit.captures(model, "Adam"), "OnlineSGPR.step did not capture under the none policy")
+            new = [g for g in fit._GRAPHS.get(model, {}).values() if id(g) not in seen]
+            seen.update(id(g) for g in new)
+            used = new[-1] if new else used
+            merge_counts(replayed, {k: v * ON_ITERS for k, v in used.launches_per_step.items()})
+        mean, var = model.predict_f(xq.astype(np.float64))
+    return model, ms, replayed, (mean, var)
+
+
+def online_float32_fails(torch, x, y, z):
+    """The same steps as online_steps in float32: the index of the first
+    batch whose step raised FloatingPointError (a non-finite loss) or left
+    a non-finite summary, or None where all stayed finite."""
+    from gptorch_tpu_torch import settings
+    from gptorch_tpu_torch.training import fit
+
+    model = online_model(torch, np.float32, z)
+    failed = None
+    with settings.override(jitter_policy="none"):
+        for i in range(ON_BATCHES):
+            lo = i * SP_BATCH
+            try:
+                model.step(x[lo : lo + SP_BATCH], y[lo : lo + SP_BATCH], fit_iters=ON_ITERS, learning_rate=ON_LR)
+            except FloatingPointError:
+                failed = i
+                break
+            if not bool(torch.isfinite(model.L_D).all() and torch.isfinite(model.r_a).all()):
+                failed = i
+                break
+    fit.release_graphs(model)
+    del model
+    torch.cuda.empty_cache()
+    return failed
+
+
+def online_phase(torch, x, y, z, xq):
+    """OnlineSGPR: ON_BATCHES captured steps in float64, the same steps in
+    float32 (which must go non-finite), then the exactness anchor; see the
+    module docstring, phase 29."""
+    from gptorch_tpu_torch.training import fit
+
+    o = {"m": SP_M, "batch": SP_BATCH, "iters": ON_ITERS, "launches": {}, "dtype": "float64"}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with gram_launch_shapes() as shapes:
+        with counted(o["launches"]):
+            model, ms, replayed, (mean, var) = online_steps(torch, x, y, z, xq)
+        o["step_ms"] = ms
+        graphs = len(fit._GRAPHS.get(model, {}))
+        per_step = {}
+        for steps in fit._GRAPHS.get(model, {}).values():
+            merge_counts(per_step, steps.launches_per_step)
+        o["launches_per_captured_step"] = per_step  # summed over the two graphs
+        merge_counts(o["launches"], replayed)
+        q = torch.as_tensor(xq.astype(np.float64), device="cuda")
+        with torch.no_grad(), counted(o["launches"]):
+            o["predict_f_ms"] = time_ms(lambda: model.predict_f(q), 5)
+        o["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del model
+        torch.cuda.empty_cache()
+        o["float32_failed_at_batch"] = online_float32_fails(torch, x, y, z)
+    o["rbf_gram_shapes"] = shapes
+    o["anchor"] = online_anchor(torch, x, y, z, xq)
+    a = o["anchor"]
+    print(f"# streaming OnlineSGPR m={SP_M} batches of {SP_BATCH}, {ON_ITERS} Adam iterations a step (lr {ON_LR}), "
+          f"{o['dtype']} (float32 non-finite from batch {o['float32_failed_at_batch']}): step ms {[round(v, 1) for v in ms]} "
+          f"({', '.join(f'{v / ON_ITERS:.3f}' for v in ms)} ms an iteration); captured graphs on the model {graphs}; "
+          f"launches recorded per captured step (both graphs) {per_step}; predict_f per {Q} {o['predict_f_ms']:.3f} ms; peak "
+          f"{o['peak_mem_gb']:.3f} GB; launches {o['launches']}; anchor (f64, theta and Z fixed, {a['batches']} "
+          f"batches): summed bounds vs batch VFE {a['bound_rel']:.3e}, predict_f {a['mean_rel']:.3e} / "
+          f"{a['var_rel']:.3e} (limits {ON_ANCHOR_TOL})", flush=True)
+    check(bool(np.isfinite(mean).all() and np.isfinite(var).all()), "OnlineSGPR gave non-finite predictions")
+    check(o["float32_failed_at_batch"] is not None,
+          "OnlineSGPR stayed finite in float32 at the cell: ROADMAP §3 and this phase's dtype are out of date")
+    check(graphs == 2, f"OnlineSGPR.step kept {graphs} captured graphs, not one per has_old")
+    check(o["launches"]["rbf_gram"] > 0, "the online path never launched rbf_gram")
+    return o
+
+
+# OnlineSGPR's exactness anchor in float64 (the summed bounds relative;
+# predict_f over the largest entries): the relative floors 1e-10 on V_aa −
+# S_a and S_a set the gap, which an H100 reads as 3.7e-9, 5.4e-9 and
+# 1.3e-10; the limits keep a factor of about 20.
+ON_ANCHOR_TOL = {"bound": 1e-7, "mean": 1e-7, "var": 3e-9}
+
+
+def online_anchor(torch, x, y, z, xq):
+    """θ and Z fixed over the whole stream, float64, the "none" policy: the
+    per-step bounds summed and predict_f against batch VFE on all the data,
+    within ON_ANCHOR_TOL (JAX tests/test_online.py:41-87)."""
+    from gptorch_tpu_torch import likelihoods, settings
+    from gptorch_tpu_torch.models import VFE
+
+    with settings.override(jitter_policy="none"), torch.no_grad():
+        model = online_model(torch, np.float64, z, jitter=ON_ANCHOR_JITTER)
+        total, batches = 0.0, 0
+        for lo in range(0, SP_N, SP_BATCH):
+            model._set_batch(x[lo : lo + SP_BATCH].astype(np.float64), y[lo : lo + SP_BATCH].astype(np.float64))
+            total += float(model.log_likelihood())
+            model._absorb()
+            batches += 1
+        q = torch.as_tensor(xq.astype(np.float64), device="cuda")
+        mo, vo = (t.cpu().numpy() for t in model.predict_f(q))
+        with default_dtype(torch, torch.float64):
+            vfe = VFE(x.astype(np.float64), y.astype(np.float64), model.kernel, inducing_points=z.astype(np.float64),
+                      likelihood=likelihoods.Gaussian(0.1), jitter=ON_ANCHOR_JITTER, device="cuda")
+        vb = float(vfe.log_likelihood())
+        vm, vv = (t.cpu().numpy() for t in vfe.predict_f(q))
+    out = {"batches": batches, "bound_rel": abs(total - vb) / abs(vb), "mean_rel": rel_gap(mo, vm),
+           "var_rel": rel_gap(vo, vv)}
+    del model, vfe
+    torch.cuda.empty_cache()
+    check(out["bound_rel"] <= ON_ANCHOR_TOL["bound"] and out["mean_rel"] <= ON_ANCHOR_TOL["mean"]
+          and out["var_rel"] <= ON_ANCHOR_TOL["var"], f"OnlineSGPR anchor vs batch VFE: {out}")
+    return out
+
+
+def pathwise_moments(samples, mean, var, prior_var, what):
+    """The draws' mean and variance at each query against predict_f's, in
+    standard errors of S draws (sd/√S for the mean, σ²·√(2/(S − 1)) for
+    the variance) plus, for the variance, the random-feature prior's own
+    error, √(2/F) of the prior variance ``prior_var`` (F = PW_FEATURES);
+    each within 5."""
+    s = samples.shape[0]
+    m_se = np.abs(samples.mean(0) - mean) / np.sqrt(var / s)
+    v_se = np.abs(samples.var(0, ddof=1) - var) / (var * math.sqrt(2.0 / (s - 1))
+                                                   + prior_var * math.sqrt(2.0 / PW_FEATURES))
+    out = {"mean_max_se": float(m_se.max()), "var_max_se": float(v_se.max())}
+    check(np.isfinite(samples).all() and out["mean_max_se"] <= 5 and out["var_max_se"] <= 5,
+          f"{what}: the samples' moments disagree with predict_f: {out}")
+    return out
+
+
+def timed_pathwise(torch, sampler, model, cand, samples, what):
+    """One warm and one timed call of ``sampler`` (a fresh generator each),
+    (ms of the timed call, its samples)."""
+    sampler(model, cand, samples, PW_FEATURES, generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sampler(model, cand, samples, PW_FEATURES, generator=torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    check(tuple(out.shape) == (samples, cand.shape[0], 1) and bool(torch.isfinite(out).all()), f"{what} samples")
+    return ms, out
+
+
+def pathwise_iterative_phase(torch, model):
+    """pathwise_gpr_samples on phase 15's matrix-free model (n = 100000):
+    PW_IT_SAMPLES paths over PATH_CANDIDATES candidates, K̂⁻¹ by the
+    posterior's CG (K3) and K(x*, X) by K1; the moments at IT_CG_QUERIES
+    candidates against the CG-exact predict_f.  A path of its own in the
+    launch counts."""
+    from gptorch_tpu_torch import sampling
+
+    out = {"n": IT_N, "samples": PW_IT_SAMPLES, "features": PW_FEATURES, "candidates": PATH_CANDIDATES,
+           "launches": {}}
+    cand = torch.as_tensor(np.random.RandomState(38).randn(PATH_CANDIDATES, D).astype(np.float32), device="cuda")
+    with gram_launch_shapes() as shapes, counted(out["launches"]), torch.no_grad():
+        out["ms"], samples = timed_pathwise(torch, sampling.pathwise_gpr_samples, model, cand, PW_IT_SAMPLES,
+                                            "iterative pathwise")
+    with torch.no_grad():
+        mean, var = model.posterior().predict_f(cand[:IT_CG_QUERIES])
+    out["rbf_gram_shapes"] = shapes
+    out["moments"] = pathwise_moments(samples[:, :IT_CG_QUERIES].cpu().numpy(), mean.cpu().numpy(),
+                                      var.cpu().numpy(), float(model.kernel.variance.value.detach()), "iterative pathwise")
+    print(f"# pathwise iterative GPR n={IT_N} d={D}: {PW_IT_SAMPLES} paths of {PW_FEATURES} features over "
+          f"{PATH_CANDIDATES} candidates {out['ms']:.1f} ms ({out['ms'] / PW_IT_SAMPLES:.1f} ms a sample; the "
+          f"posterior's CG alpha, the CG solve of the {PW_IT_SAMPLES} prior residuals, K(x*, X)); moments at "
+          f"{IT_CG_QUERIES} candidates {out['moments']}; launches {out['launches']}", flush=True)
+    check(out["launches"]["gram_mvm"] > 0 and out["launches"]["rbf_gram"] > 0,
+          f"the iterative pathwise sampler did not launch gram_mvm and rbf_gram: {out['launches']}")
+    del samples
+    torch.cuda.empty_cache()
+    return out
+
+
+def pathwise_phase(torch):
+    """pathwise_gpr_samples on the exact serving model and
+    pathwise_svgp_samples on the sparse cell's SVGP; see the module
+    docstring, phase 30.  Each sampler a path of its own."""
+    from gptorch_tpu_torch import kernels, likelihoods, sampling, settings
+    from gptorch_tpu_torch.models import GPR, SVGP
+
+    out = {"gpr": {"n": N, "d": D, "launches": {}}, "svgp": {"n": SP_N, "d": SP_D, "m": SP_M, "launches": {}}}
+    rng = np.random.RandomState(39)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with gram_launch_shapes() as shapes, settings.override(jitter_policy="fixed"):
+        x, y, _ = make_data(N, D, np.float32)
+        gpr = GPR(x, y, kernels.Rbf(D, ARD=True), likelihood=likelihoods.Gaussian(0.1), device="cuda")
+        xs, ys, z = sparse_data(SP_N, SP_D, SP_M, np.float32)
+        svgp = SVGP(xs, ys, kernels.Rbf(SP_D, ARD=True), inducing_points=z, batch_size=SP_BATCH, jitter=SP_JITTER,
+                    device="cuda")
+        for name, model, sampler, d in (("gpr", gpr, sampling.pathwise_gpr_samples, D),
+                                        ("svgp", svgp, sampling.pathwise_svgp_samples, SP_D)):
+            o = out[name]
+            cand = torch.as_tensor(rng.randn(PATH_CANDIDATES, d).astype(np.float32), device="cuda")
+            with counted(o["launches"]), torch.no_grad():
+                o["ms"], samples = timed_pathwise(torch, sampler, model, cand, PW_SAMPLES, f"pathwise {name}")
+            with torch.no_grad():
+                mean, var = (model.posterior() if name == "gpr" else model).predict_f(cand[:Q])
+            o["moments"] = pathwise_moments(samples[:, :Q].cpu().numpy(), mean.cpu().numpy(), var.cpu().numpy(),
+                                            float(model.kernel.variance.value.detach()), f"pathwise {name}")
+            check(o["launches"]["rbf_gram"] > 0, f"the pathwise {name} path never launched rbf_gram")
+            del samples
+        del gpr, svgp
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    out["rbf_gram_shapes"] = shapes
+    g, s = out["gpr"], out["svgp"]
+    print(f"# pathwise {PW_SAMPLES} paths of {PW_FEATURES} features over {PATH_CANDIDATES} candidates f32: exact GPR "
+          f"n={N} d={D} {g['ms']:.1f} ms ({g['ms'] / PW_SAMPLES:.2f} ms a sample; posterior() included), moments "
+          f"{g['moments']}, launches {g['launches']}; SVGP n={SP_N} m={SP_M} {s['ms']:.2f} ms ({s['ms'] / PW_SAMPLES:.3f} "
+          f"ms a sample), moments {s['moments']}, launches {s['launches']}; peak {out['peak_mem_gb']:.3f} GB",
+          flush=True)
+    out["card_vs_cpu"] = pathwise_card_vs_cpu(torch)
+    return out
+
+
+def pathwise_card_vs_cpu(torch):
+    """Float64 at n = PW_CHECK_N, the draws held fixed (the CPU run's draws
+    replayed on the card): pathwise_gpr_samples with the dense and the
+    iterative solver (CG to IT_CHECK_TOL) and pathwise_svgp_samples, the
+    card against the CPU, to F64_REL_TOL."""
+    from gptorch_tpu_torch import kernels, likelihoods, sampling
+    from gptorch_tpu_torch.models import GPR, SVGP
+
+    x, y, _ = make_data(PW_CHECK_N, D, np.float64)
+    xs, ys, z = sparse_data(PW_CHECK_N, SP_D, 64, np.float64)
+    rng = np.random.RandomState(40)
+    cand, cand_sp = rng.randn(64, D), rng.randn(64, SP_D)
+    makers = {
+        "gpr dense": lambda dev: (GPR(x, y, kernels.Rbf(D, ARD=True), likelihood=likelihoods.Gaussian(0.1),
+                                      device=dev), sampling.pathwise_gpr_samples, cand),
+        "gpr iterative": lambda dev: (GPR(x, y, kernels.Rbf(D, ARD=True), likelihood=likelihoods.Gaussian(0.1),
+                                          solver="iterative", probes=4, max_cg_iters=IT_CHECK_ITERS, precond_rank=32,
+                                          cg_tol=IT_CHECK_TOL, device=dev), sampling.pathwise_gpr_samples, cand),
+        "svgp": lambda dev: (SVGP(xs, ys, kernels.Rbf(SP_D, ARD=True), inducing_points=z, jitter=SP_JITTER,
+                                  device=dev), sampling.pathwise_svgp_samples, cand_sp),
+    }
+    rels = {}
+    for name, make in makers.items():
+        runs, draws = {}, []
+        for device in ("cpu", "cuda"):
+            with default_dtype(torch, torch.float64), recorded_draws(torch, draws):
+                model, sampler, c = make(device)
+                runs[device] = sampler(model, c, 4, 256, generator=torch.Generator(device=device))
+        rels[name] = rel_gap(runs["cuda"], runs["cpu"])
+    print(f"# pathwise f64 n={PW_CHECK_N} (draws held): card vs CPU max relative gaps {rels} (tol {F64_REL_TOL})",
+          flush=True)
+    check(all(r <= F64_REL_TOL for r in rels.values()), f"pathwise f64 card vs CPU: {rels}")
+    return rels
+
+
+def sparse_variant_phases(torch, it_pathwise):
+    """The heteroscedastic, deep, streaming and pathwise phases, and K1's
+    shapes on them (and on the iterative pathwise sampler, ``it_pathwise``,
+    run in phase 15) checked against gram_phase's cases; returns their
+    results, the launches of each of their seven paths (counted over the
+    path's own runs only), and the seconds they took together."""
+    t0 = time.perf_counter()
+    out = {"heteroscedastic": heteroscedastic_phase(torch), "deep": deep_phase(torch),
+           "streaming": streaming_phase(torch), "pathwise": pathwise_phase(torch)}
+    check_gram_coverage(set().union(it_pathwise["rbf_gram_shapes"],
+                                    *(result["rbf_gram_shapes"] for result in out.values())))
+    paths = {"heteroscedastic": out["heteroscedastic"]["launches"], "deep": out["deep"]["launches"],
+             "streaming_vfe": out["streaming"]["streaming_vfe"]["launches"],
+             "online_sgpr": out["streaming"]["online_sgpr"]["launches"],
+             "pathwise_gpr": out["pathwise"]["gpr"]["launches"], "pathwise_svgp": out["pathwise"]["svgp"]["launches"],
+             "pathwise_iterative": it_pathwise["launches"]}
+    seconds = time.perf_counter() - t0
+    print(f"# heteroscedastic, deep, streaming and pathwise phases: {seconds:.1f} s together; launches by path "
+          f"{paths}", flush=True)
+    return out, paths, seconds
+
+
 def build_kernels():
     """Builds the four kernel sources of the package on ``sys.path`` (one
     nvcc each, all started together) and loads them: (seconds, (gram,
@@ -4994,6 +5953,7 @@ def main() -> int:
         done("zoo")
         it_model, it_queries, iterative_training = iterative_training_phase(torch)
         iterative_serving = iterative_serving_phase(torch, it_model, it_queries)
+        it_pathwise = pathwise_iterative_phase(torch, it_model)
         del it_model
         torch.cuda.empty_cache()
         iterative_training["card_vs_cpu"] = iterative_card_vs_cpu(torch, reference)
@@ -5006,6 +5966,8 @@ def main() -> int:
     done("structured")
     fleet, fleet_paths, fleet_s = fleet_phases(torch)
     done("fleet")
+    variants, variant_paths, variants_s = sparse_variant_phases(torch, it_pathwise)
+    done("sparse_variants")
     print(f"# seconds by phase group: {phase_s}", flush=True)
 
     paths = {"serving": serving["launches"], "training": training["launches"],
@@ -5017,7 +5979,7 @@ def main() -> int:
              "iterative_serving": iterative_serving["launches"],
              **{name: result["launches"] for name, result in latent.items()},
              **{name: result["launches"] for name, result in structured.items()},
-             **fleet_paths}
+             **fleet_paths, **variant_paths}
     g, c = gram_rows[0], contract_rows[0]
     gb = next(r for r in gram_rows if r.get("batch") and r["dtype"] == "float32" and r["case"] == "fleet K")
     m9, lr = mvm_rows["timed"][9], lowrank_rows["timed"][IT_PROBES + 1]
@@ -5113,7 +6075,10 @@ def main() -> int:
           f"{structured['kronecker']['peak_mem_gb']:.3f} GB, ski {structured['ski']['peak_mem_gb']:.3f} GB (their "
           f"phases {structured_s:.1f} s), ensemble {fleet['ensemble']['peak_mem_gb']:.3f} GB, multioutput "
           f"{fleet['multioutput']['peak_mem_gb']:.3f} GB, derivative {fleet['derivative']['peak_mem_gb']:.3f} GB, exact "
-          f"variants {fleet['exact_variants']['peak_mem_gb']:.3f} GB (their phases {fleet_s:.1f} s); "
+          f"variants {fleet['exact_variants']['peak_mem_gb']:.3f} GB (their phases {fleet_s:.1f} s), heteroscedastic "
+          f"{variants['heteroscedastic']['peak_mem_gb']:.3f} GB, deep {variants['deep']['peak_mem_gb']:.3f} GB, streaming "
+          f"{variants['streaming']['peak_mem_gb']:.3f} GB, pathwise {variants['pathwise']['peak_mem_gb']:.3f} GB (their "
+          f"phases {variants_s:.1f} s); "
           f"launches count each captured step's recorded launches once per "
           f"replay; total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels_line), flush=True)

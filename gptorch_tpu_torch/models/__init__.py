@@ -1,11 +1,14 @@
 from .base import GPModel
+from .deep import DeepGP
 from .derivative import DerivativeGPR
 from .ensemble import GPEnsemble
 from .gplvm import GPLVM
 from .gpr import GPR
+from .heteroscedastic import HeteroscedasticSVGP
 from .kronecker import GridGPR
 from .laplace import LaplaceGP
 from .multioutput import ICM, LMC
+from .online import OnlineSGPR
 from .posterior import (
     FantasyGPRChain,
     GPRPosterior,
@@ -30,11 +33,13 @@ from .posterior import (
 from .ski import SKIGPR, SKIPosterior
 from .sparse_gpr import FITC, SVGP, VFE
 from .statespace import StateSpaceGPR
+from .streaming import StreamingVFE
 from .studentt import TPR
 from .vecchia import VecchiaGPR
 from .warped import TanhWarp, WarpedGPR
 
 __all__ = [
+    "DeepGP",
     "DerivativeGPR",
     "FITC",
     "FantasyGPRChain",
@@ -45,6 +50,7 @@ __all__ = [
     "GPRPosterior",
     "GridGPR",
     "GridGPRPosterior",
+    "HeteroscedasticSVGP",
     "ICM",
     "ICMPosterior",
     "IterativeGPRPosterior",
@@ -52,6 +58,7 @@ __all__ = [
     "LMCPosterior",
     "LaplaceGP",
     "LowRankPosterior",
+    "OnlineSGPR",
     "Posterior",
     "SKIGPR",
     "SKIPosterior",
@@ -61,6 +68,7 @@ __all__ = [
     "ServingLowRankPosterior",
     "ServingSVGPPosterior",
     "StateSpaceGPR",
+    "StreamingVFE",
     "TPR",
     "TanhWarp",
     "VFE",

@@ -12,7 +12,6 @@ from, and every other model ignores.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import numpy as np
@@ -25,30 +24,7 @@ from .. import settings
 from ..functions import cholesky
 from ..module import Module, call_with_trainable
 from ..training import fit as _fit
-from ..util import as_array
-
-
-def _coerce_io(predict_func):
-    """numpy in -> numpy out; tensor in -> tensor out.
-
-    A numpy input is cast to the dtype and device of
-    ``self._input_reference()`` (the training inputs; a sparse posterior's
-    inducing points) and run under ``torch.no_grad()``: its numpy output
-    carries no graph anyway."""
-
-    @functools.wraps(predict_func)
-    def predict(self, input_new, *args, **kwargs):
-        if not isinstance(input_new, np.ndarray):
-            return predict_func(self, input_new, *args, **kwargs)
-        ref = self._input_reference()
-        input_new = as_array(input_new, dtype=ref.dtype, device=ref.device)
-        with torch.no_grad():
-            out = predict_func(self, input_new, *args, **kwargs)
-        if isinstance(out, tuple):
-            return tuple(o.cpu().numpy() for o in out)
-        return out.cpu().numpy()
-
-    return predict
+from ..util import _coerce_io, as_array
 
 
 class Predictive(Module):

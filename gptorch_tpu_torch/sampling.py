@@ -16,20 +16,35 @@ package's PRNG keys become generators; the two packages draw different
 numbers from the same seed.
 
 Every draw goes through :func:`standard_normal` or :func:`uniform`, so a
-caller can hold the draws fixed.  ``pathwise_gpr_samples`` and
-``pathwise_svgp_samples`` are not ported yet (ROADMAP item 10).
+caller can hold the draws fixed.
+
+:func:`pathwise_svgp_samples` and :func:`pathwise_gpr_samples` draw
+posterior function samples by Matheron's rule (Wilson et al. 2020): an
+RFF prior path plus an update through the inducing points or the training
+data,
+
+    f_post(·) = f_prior(·) + K(·, Z) Kuu⁻¹ (u − f_prior(Z)),  u ~ q(u)
+    f_post(·) = f_prior(·) + K(·, X) K̂⁻¹ (y − m(X) − f_prior(X) − ε),  ε ~ N(0, σ²I)
+
+so a sample costs O(F + m) (or O(F + n)) per evaluation point.  On the
+card K(x*, Z) and K(x*, X) of an Rbf kernel are launches of
+``csrc/rbf_gram.cu``, and a ``solver="iterative"`` GPR's K̂⁻¹ is its
+posterior's CG solve, whose products are launches of ``csrc/radial_mvm.cu``.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from . import settings
+from .functions import cholesky, trtrs
 from .kernels import Exp, Matern32, Matern52, Rbf, SpectralMixture
+from .util import _coerce_io
 
-__all__ = ["RandomFourierFeatures", "standard_normal", "uniform"]
+__all__ = ["RandomFourierFeatures", "pathwise_gpr_samples", "pathwise_svgp_samples", "standard_normal", "uniform"]
 
 #: Matérn smoothness by kernel class; Matern12 is an Exp subclass, so the
 #: order matters.
@@ -110,3 +125,66 @@ class RandomFourierFeatures:
             var = self._amplitude2
         proj = x @ self.omega + self.phase
         return torch.sqrt(2.0 * var / self.num_features) * torch.cos(proj)
+
+
+def _cholesky_solve(L, B):
+    """(L Lᵀ)⁻¹ B by two triangular solves, batched over B's leading axes."""
+    return trtrs(trtrs(B, L), L.mT, lower=False)
+
+
+@_coerce_io
+def pathwise_svgp_samples(model, x_star, num_samples: int = 10, num_features: int = 1024,
+                          generator: torch.Generator = None):
+    """``num_samples`` posterior function samples of an SVGP at ``x_star``
+    by the sparse Matheron rule (see the module docstring): (num_samples,
+    n*, dy).  The draws come from ``generator`` (default:
+    :func:`~gptorch_tpu_torch.settings.next_default_generator` on the
+    model's device) in the order: the features, the prior weights W
+    (S, F, dy), the q(u) normals ζ (S, m, dy).  A whitened q is mapped back
+    to u-space once."""
+    if generator is None:
+        generator = settings.next_default_generator(model.device)
+    phi = RandomFourierFeatures(model.kernel, num_features, generator)
+    z = model.Z.value
+    L = cholesky(model._kuu(z), blocked=False)
+    m_u = model.induced_output_mean.value  # (m, dy), relative to the mean function
+    Lq = model.induced_output_chol_cov.value
+    if getattr(model, "whiten", False):
+        m_u, Lq = L @ m_u, L @ Lq
+    m, dy = m_u.shape
+    W = standard_normal(generator, (num_samples, num_features, dy), m_u)
+    f_prior_star = torch.einsum("sfo,nf->sno", W, phi(x_star))
+    f_prior_z = torch.einsum("sfo,mf->smo", W, phi(z))
+    u = m_u[None] + torch.einsum("mk,sko->smo", Lq, standard_normal(generator, (num_samples, m, dy), m_u))
+    v = _cholesky_solve(L, u - f_prior_z)  # Kuu⁻¹ (u − f_prior(Z)), (S, m, dy)
+    update = torch.einsum("nm,smo->sno", model.kernel.K(x_star, z), v)
+    return f_prior_star + update + model.mean_function(x_star)[None]
+
+
+@_coerce_io
+def pathwise_gpr_samples(model, x_star, num_samples: int = 10, num_features: int = 1024,
+                         generator: torch.Generator = None):
+    """Posterior function samples of an exact GPR at ``x_star`` by
+    Matheron's rule (see the module docstring): (num_samples, n*, dy).
+    K̂⁻¹ is the model's cached posterior solver: the dense Cholesky factor
+    for ``solver="dense"``, the batched preconditioned CG of
+    :class:`~gptorch_tpu_torch.models.posterior.IterativeGPRPosterior` for
+    ``solver="iterative"``.  The draws come from ``generator`` in the order:
+    the features, the prior weights W (S, F, dy), the noise ε (S, n, dy)."""
+    if generator is None:
+        generator = settings.next_default_generator(model.device)
+    phi = RandomFourierFeatures(model.kernel, num_features, generator)
+    X = model.X
+    n, dy = model.Y.shape
+    noise = model.likelihood.variance.value.reshape(())
+    W = standard_normal(generator, (num_samples, num_features, dy), X)
+    f_prior_star = torch.einsum("sfo,nf->sno", W, phi(x_star))
+    f_prior_X = torch.einsum("sfo,nf->sno", W, phi(X))
+    eps = torch.sqrt(noise) * standard_normal(generator, (num_samples, n, dy), X)
+    resid = (model.Y - model.mean_function(X))[None] - f_prior_X - eps
+    B = resid.movedim(0, -1).reshape(n, dy * num_samples)  # one K̂⁻¹ application for every sample
+    post = model.posterior()
+    V = post._solve(B) if hasattr(post, "_solve") else _cholesky_solve(post.L, B)
+    V = V.reshape(n, dy, num_samples).movedim(-1, 0)  # (S, n, dy)
+    update = torch.einsum("nm,smo->sno", model.kernel.K(x_star, X), V)
+    return f_prior_star + update + model.mean_function(x_star)[None]

@@ -1,11 +1,13 @@
-"""Utilities: tensor coercion, pairwise squared distances, k-means
-centres and PCA.
+"""Utilities: tensor coercion, numpy-in/numpy-out prediction, pairwise
+squared distances, k-means centres and PCA.
 
 Counterpart of ``gptorch_tpu/util.py`` (``as_array``, ``squared_distance``,
 ``kmeans_centers``, ``PCA``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -31,6 +33,30 @@ def as_array(x, dtype=None, device=None) -> torch.Tensor:
     if isinstance(x, (list, tuple)):
         return torch.tensor(x, dtype=dtype, device=device)
     raise TypeError(f"Unsupported type {type(x)}")
+
+
+def _coerce_io(predict_func):
+    """numpy in -> numpy out; tensor in -> tensor out.
+
+    Wraps a method of a model or posterior, or a function whose first
+    argument is one (the pathwise samplers).  A numpy input is cast to the
+    dtype and device of ``self._input_reference()`` (the training inputs; a
+    sparse posterior's inducing points) and run under ``torch.no_grad()``:
+    its numpy output carries no graph anyway."""
+
+    @functools.wraps(predict_func)
+    def predict(self, input_new, *args, **kwargs):
+        if not isinstance(input_new, np.ndarray):
+            return predict_func(self, input_new, *args, **kwargs)
+        ref = self._input_reference()
+        input_new = as_array(input_new, dtype=ref.dtype, device=ref.device)
+        with torch.no_grad():
+            out = predict_func(self, input_new, *args, **kwargs)
+        if isinstance(out, tuple):
+            return tuple(o.cpu().numpy() for o in out)
+        return out.cpu().numpy()
+
+    return predict
 
 
 def squared_distance(x1, x2=None):

@@ -1305,3 +1305,104 @@ def test_correlated_derivative_and_variant_models_card_match_cpu(cuda, name):
         torch.testing.assert_close(a, b, rtol=tol, atol=tol)
     for a, b in zip(out["cuda"][2], out["cpu"][2]):
         np.testing.assert_allclose(a, b, rtol=0, atol=tol * max(np.abs(b).max(), 1e-300))
+
+
+@pytest.mark.parametrize("samples", [1, 3])
+def test_deep_gp_one_k1_launch_per_layer_gram(cuda, samples):
+    """A DeepGP value-and-grad launches K1 once for each layer's Kuu and once
+    for its K(Z, F), whatever the number of samples: a hidden layer's Gram
+    of all samples is one batched launch."""
+    from gptorch_tpu_torch.models import DeepGP
+
+    rng = np.random.RandomState(6)
+    x = rng.randn(64, 2)
+    y = np.sin(x[:, :1])
+    with _float64():
+        model = DeepGP(x, y, widths=(3, 2), num_inducing=8, num_samples=samples, device="cuda")
+        before = gram.rbf_gram.launches
+        loss = model.loss(generator=torch.Generator(device="cuda").manual_seed(0))
+        loss.backward()
+    assert gram.rbf_gram.launches - before == 2 * model.num_layers
+    assert all(torch.isfinite(p.grad).all() for p in get_trainable(model).values() if p.grad is not None)
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+def test_k1_gradient_into_sample_inputs(cuda, dtype, tol):
+    """K1's batched cross Gram of Z, repeated over S samples, against F
+    (S, n, d), and its gradient into Z, F, the length scales and the
+    variance, against autograd through the plain twin in float64."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    z = torch.randn(10, 3, generator=g, device="cuda", dtype=torch.float64)
+    F = torch.randn(4, 70, 3, generator=g, device="cuda", dtype=torch.float64)
+    cot = torch.randn(4, 10, 70, generator=g, device="cuda", dtype=torch.float64)
+    ell = torch.tensor([0.7, 1.1, 1.4], device="cuda", dtype=torch.float64)
+    var = torch.tensor(1.3, device="cuda", dtype=torch.float64)
+    grads = []
+    for fn, dt in ((lambda a, b, v: gram.rbf_gram(a, b, var=v), dtype), (gram.rbf_gram_plain, torch.float64)):
+        leaves = [t.to(dt).clone().requires_grad_() for t in (z, F, ell, var)]
+        zl, Fl, el, vl = leaves
+        before = gram.rbf_gram.launches
+        out = fn((zl.expand(4, -1, -1) / el).contiguous(), (Fl / el).contiguous(), vl)
+        assert gram.rbf_gram.launches - before == (0 if fn is gram.rbf_gram_plain else 1)
+        grads.append([t.double() for t in torch.autograd.grad(out, leaves, cot.to(dt))])
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max() / b.abs().max()) <= tol
+
+
+def test_streaming_vfe_stream_replays_as_one_graph(cuda):
+    """A stream of equal-sized StreamingVFE updates captured as one CUDA
+    graph (no host read in ``update``) replays to the eager statistics."""
+    from gptorch_tpu_torch.models import StreamingVFE
+
+    rng = np.random.RandomState(8)
+    x = torch.as_tensor(rng.randn(6, 50, 2), device="cuda")
+    y = torch.sin(x[..., :1])
+    z = rng.randn(12, 2)
+    with _float64(), settings.override(jitter_policy="none"), torch.no_grad():
+        eager = StreamingVFE(kernels.Rbf(2), z, likelihood=likelihoods.Gaussian(0.1), device="cuda")
+        s0 = StreamingVFE(kernels.Rbf(2), z, likelihood=likelihoods.Gaussian(0.1), device="cuda")
+        for i in range(6):
+            eager = eager.update(x[i], y[i])
+
+        def stream():
+            s = s0
+            for i in range(6):
+                s = s.update(x[i], y[i])
+            return s
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            stream()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = gram.rbf_gram.launches
+        with torch.cuda.graph(graph):
+            captured = stream()
+        assert gram.rbf_gram.launches - before == 12  # Kuu and Kuf of each update, recorded once
+        graph.replay()
+        torch.cuda.synchronize()
+        for name in ("phi_w", "r_w", "yy", "kdiag_sum", "n_seen"):
+            torch.testing.assert_close(getattr(captured, name), getattr(eager, name), rtol=1e-12, atol=1e-12)
+        assert float(captured.log_likelihood()) == pytest.approx(float(eager.log_likelihood()), rel=1e-12)
+
+
+def test_online_sgpr_step_reuses_its_captured_graph(cuda):
+    """OnlineSGPR.step under the fixed jitter policy captures one optimizer
+    step per (batch size, has_old) and replays it; the captured steps match
+    the CPU's eager ones."""
+    from gptorch_tpu_torch.models import OnlineSGPR
+
+    rng = np.random.RandomState(9)
+    x = rng.randn(120, 2)
+    y = np.sin(x[:, :1]) + 0.1 * rng.randn(120, 1)
+    out = {}
+    with _float64(), settings.override(jitter_policy="fixed"):
+        for device in ("cuda", "cpu"):
+            model = OnlineSGPR(kernels.Rbf(2, ARD=True), x[:10], likelihood=likelihoods.Gaussian(0.1), device=device)
+            for lo in range(0, 120, 40):
+                model.step(x[lo : lo + 40], y[lo : lo + 40], fit_iters=5)
+            out[device] = (model, model.predict_f(x[:5]))
+    assert len(fit._GRAPHS[out["cuda"][0]]) == 2 and out["cpu"][0] not in fit._GRAPHS
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-8 * np.abs(b).max())

@@ -28,6 +28,15 @@ both):
 7. K1's autograd function has the ``setup_context`` form and a ``vmap``
    rule (tests/test_torch_gram.py holds the rule; here ``torch.func.grad``
    runs through it).
+
+And one gap of the prediction decorator:
+
+8. ``_coerce_io`` casts a numpy input to the dtype and device of
+   ``_input_reference()``; StreamingVFE (which has no X) and OnlineSGPR
+   (whose X is empty between steps) take Z's (Z_old's once OnlineSGPR has
+   absorbed a batch), as the JAX package's decorator falls back to
+   ``Z.raw``: a numpy ``predict_f`` returns numpy of Z's dtype, before and
+   after a batch.
 """
 
 import jax
@@ -375,3 +384,27 @@ def test_rbf_gram_function_runs_under_func_grad(monkeypatch):
 
     v = torch.tensor(1.3, dtype=torch.float64)
     assert float(torch.func.grad(via_function)(v)) == pytest.approx(float(torch.func.grad(via_twin)(v)), rel=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_streaming_models_cast_numpy_inputs_like_z(dtype):
+    from gptorch_tpu_torch.models import OnlineSGPR, StreamingVFE
+
+    rng = np.random.RandomState(5)
+    x, z, xq = rng.randn(30, D), rng.randn(6, D), rng.randn(4, D)
+    y = np.sin(x[:, :1])
+    torch.set_default_dtype(dtype)
+    stream = StreamingVFE(kernels.Rbf(D), z, likelihood=likelihoods.Gaussian(0.1), device="cpu")
+    online = OnlineSGPR(kernels.Rbf(D), z, likelihood=likelihoods.Gaussian(0.1), device="cpu")
+    assert stream.Z.dtype == dtype
+    want_dtype = np.float32 if dtype == torch.float32 else np.float64
+    for model, absorb in ((stream, lambda: stream.observe(x, y)), (online, lambda: online.step(x, y, fit_iters=2))):
+        if model is stream:  # before a batch: the prior
+            mean, var = model.predict_f(xq)
+            assert mean.dtype == var.dtype == want_dtype and np.allclose(var, 1.0, atol=1e-6)
+        absorb()
+        mean, var = model.predict_f(xq)
+        assert isinstance(mean, np.ndarray) and mean.dtype == var.dtype == want_dtype
+        tmean, tvar = model.predict_f(torch.as_tensor(xq, dtype=dtype))
+        np.testing.assert_array_equal(mean, tmean.detach().numpy())
+    assert online._input_reference() is online.Z_old and stream._input_reference() is stream.Z.raw
