@@ -236,6 +236,58 @@ parent.
    Phases 27-30 print the seconds they took together; the heteroscedastic
    SVGP, the deep GP, StreamingVFE, OnlineSGPR and the three samplers are
    each a path of their own.
+31. bayesopt: the serving cell's posterior (n = 32768, d = 8, Rbf-ARD,
+   Gaussian(0.1), float32) over the box [-3, 3]^8: score_candidates over
+   4096 candidates for ei, logei, pi and ucb; suggest (4096 candidates, 25
+   refinement steps, each a value-and-grad of predict_f at one point: K1's
+   32768 × 1 cross Gram and its backward); suggest_thompson (q = 4, 1024
+   features); suggest_qei (q = 4, 128 paths over 2048 candidates, 60
+   steps); four Kriging-believer picks (suggest, then condition_on at the
+   predicted mean); each with its ms, K1 launches and peak memory.  Checks:
+   every point in the box; the suggestion's EI at least the best
+   candidate's, or that candidate; float32 against float64 EI over the
+   candidates; in float64 at n = 256 the card against the CPU (the CPU's
+   draws replayed) for suggest, suggest_thompson and suggest_qei.
+32. bayesopt_loop: BayesOpt(bounds=[[0, 1]] * 8, Rbf-ARD, fit_iters=200,
+   refit_every=4, n_candidates=4096) on the Levy function, 512 seeded
+   observations then 16 suggest/observe iterations and a batch of 4 by
+   "ts", "believer" and "qei", float64 under the "none" jitter policy;
+   then 4 iterations with the default Matern52 (no K1).  ms an iteration
+   split into refits (capture and 200 captured Adam steps, the capture's
+   share) and fantasy iterations (condition_on); K1 launches an iteration.
+   Checks: best_y never rises; a fantasy posterior equals a fresh
+   posterior() of the augmented data at the same hyperparameters; points in
+   the box; every refit captured.
+33. design on phase 31's posterior: suggest_batch q = 8 over the 4096
+   candidates, "alc" with 1024 references and "variance"; ms a pick, the
+   stages K(X, x_cand) and its 32768² × 4096 triangular solve against
+   their bounds, peak memory.  Check: the first pick's ALC equals the
+   variance drop over the references that condition_on realizes (float32
+   at n = 32768, with a control that must fail; float64 at n = 4096).
+34. metrics: kfold_cv with k = 5 on n = 5120 (make_data), Rbf-ARD,
+   Gaussian(0.1), 100 captured Adam steps (one batched K1 launch of 5 ×
+   4096² a step); its ms, the steps' ms an iteration, the capture; then
+   summarize on phase 31's predictions of 8 × 256 queries.  Checks:
+   finite fold metrics; in float64 at k = 3, n = 96 the card against the
+   CPU.
+35. structure and checkpoint: kernel_search at bench_ksearch.py's cell (n
+   = 256, bases Rbf and Linear, depth 2, 40 L-BFGS iterations) and the
+   default search (Rbf, Linear, Cosine; depth 3; 150 iterations) at n =
+   1024: candidates a minute, the expression, L-BFGS evaluations, K1
+   launches; in float64 the card's search against the CPU's.  Checkpoint
+   round trips of the serving model, a StreamingVFE and an OnlineSGPR
+   (phase 29's shapes); after load_trainable into a model whose captured
+   fit_scan graph is cached, fit_scan replays it and gives a fresh model's
+   losses.  profiling.trace around one serving predict_f names K1's kernel
+   and an annotate("gram") range; device_memory_stats's peak is torch's
+   (in a fresh process of the script, ``--profiling-check DIR``: after the
+   earlier phases' profiler sessions a trace in this process holds no
+   kernel records of a short window).
+   Phases 31-35 print the seconds they took together; bayesopt,
+   bayesopt_loop, design, metrics, kernel_search and checkpoint are each a
+   path of their own.  K1 shapes whose n grows while a path runs (the loop,
+   the believer picks, the design's conditioned posteriors) and those of
+   the small float64 checks are held against the twin as they launch.
 
 On the card, fit_scan captures a first-order run as a CUDA graph; the
 training, general-training, SVGP and DKL phases check that it did.  Before
@@ -498,6 +550,59 @@ ST_NOISE, ON_BATCHES, ON_ITERS, ON_LR, ON_ANCHOR_JITTER = 0.01, 4, 60, 0.05, 1e-
 # the sparse cell's SVGP), PW_IT_SAMPLES on phase 15's matrix-free model;
 # the float64 card-vs-CPU check at PW_CHECK_N with the draws held fixed.
 PW_SAMPLES, PW_FEATURES, PW_IT_SAMPLES, PW_CHECK_N = 16, 1024, 8, 512
+# The application layer (phases 31-35).  bayesopt: the serving cell's
+# posterior (n = 32768, d = 8, float32) over the box [-BO_BOX, BO_BOX]^8
+# (its inputs are N(0, I)): BO_CANDIDATES candidates and BO_STEPS
+# refinement steps a suggest, Thompson with BO_TS_Q paths, q-EI with
+# BO_QEI_Q points, BO_QEI_SAMPLES paths over BO_QEI_CANDIDATES candidates
+# and BO_QEI_STEPS steps, BO_BELIEVER believer picks; the card against the
+# CPU in float64 at BO_CHECK_N.  float32 against float64 EI over the
+# candidates, absolute in y's units: the serving phase's SERVING_TOL, the
+# moments' own float32 limit on this data.
+BO_BOX, BO_CANDIDATES, BO_STEPS, BO_TS_Q, BO_FEATURES, BO_CHECK_N = 3.0, 4096, 25, 4, 1024, 256
+BO_QEI_Q, BO_QEI_SAMPLES, BO_QEI_CANDIDATES, BO_QEI_STEPS, BO_BELIEVER = 4, 128, 2048, 60, 4
+# bayesopt_loop: BayesOpt on [0, 1]^8 over the Levy function (mapped from
+# [-10, 10]^8), LOOP_N0 seeded observations, LOOP_ITERS suggest/observe
+# iterations (Rbf-ARD, LOOP_FIT_ITERS Adam steps a refit, refit every
+# LOOP_REFIT observations), a batch of LOOP_BATCH per strategy, then
+# LOOP_MATERN_ITERS iterations with the default Matern52.  In float64: the
+# surrogate's noise starts at 1e-4 of the standardized targets, so K + σ²I
+# has κ ~ n/σ² ~ 5e6 and float32's factors keep about one digit.  Under
+# the "none" jitter policy (which, like "fixed", lets fit_scan capture):
+# "fixed" jitters the fantasy rows' Schur complement by 1e-6 of its own
+# small diagonal and a fresh factor by 1e-6 of K's, so the two would factor
+# different matrices.  The fantasy posterior against a fresh factorization
+# of the augmented data: LOOP_FANTASY_TOL of the largest moment.
+LOOP_N0, LOOP_ITERS, LOOP_FIT_ITERS, LOOP_REFIT, LOOP_BATCH, LOOP_MATERN_ITERS = 512, 16, 200, 4, 4, 4
+LOOP_FANTASY_TOL = 1e-7
+# design: DE_Q greedy picks over the BO_CANDIDATES candidates with DE_REF
+# references, on phase 31's posterior.  The first pick's ALC against the
+# variance drop over the references that condition_on realizes, relative:
+# DE_F32_TOL in float32, about 20× an H100's reading of 1.8e-6; its
+# control, ALC with every Rbf Gram scaled by 1 + 2^-11 (a kernel that
+# misread its variance by half a float16 step), reads 9.5e-4 and must fail
+# it.  DE_F64_TOL in float64 at DE_F64_N.
+DE_Q, DE_REF, DE_F32_TOL, DE_F64_TOL, DE_F64_N = 8, 1024, 4e-5, 1e-8, 4096
+# metrics: kfold_cv at CV_K folds of CV_N rows (make_data, d = 8, Gaussian
+# noise 0.1 as the serving cell's), CV_ITERS captured Adam steps at lr
+# CV_LR; the card against the CPU in float64 at CV_CHECK_K folds of
+# CV_CHECK_N rows and CV_CHECK_ITERS steps.
+CV_K, CV_N, CV_ITERS, CV_LR, CV_CHECK_K, CV_CHECK_N, CV_CHECK_ITERS = 5, 5120, 100, 0.05, 3, 96, 20
+# structure: bench_ksearch.py's cell (n = KS_N, 1-D, RandomState(1),
+# bases Rbf and Linear, depth 2, KS_ITERS L-BFGS iterations, float32 as
+# the bench casts it), then the default search (Rbf, Linear, Cosine; depth
+# 3; KS_DEFAULT_ITERS) at KS_DEFAULT_N in float64, the search's own advice
+# ("same f64 numerics", gptorch_tpu/structure.py:182-183): in float32 the
+# line search exhausts its 20 steps once the loss stops moving in float32's
+# last digit (12-15 evaluations an iteration on an H100, 126 s for the
+# default search); float64 card against CPU scores to KS_REL_TOL.  checkpoint:
+# CK_STEPS Adam steps of the serving cell's model after load_trainable.
+KS_N, KS_ITERS, KS_DEFAULT_N, KS_DEFAULT_ITERS, KS_REL_TOL, CK_STEPS = 256, 40, 1024, 150, 1e-6, 2
+# A round trip recomputes from the same values in the same process, so its
+# gaps are those of two runs of one computation: relative, CK_F32_TOL in
+# float32 (the fused training step's reductions may differ in order from
+# run to run), CK_F64_TOL in float64.
+CK_F32_TOL, CK_F64_TOL = 1e-6, 1e-12
 
 
 def lowrank_tol(name, n):
@@ -608,7 +713,13 @@ def dtype_name(dtype):
 # GP's value block, the Laplace GP, TPR at half n); phases 27-30's: the
 # deep GP's first layer K(Z, X) (all n, a batch, queries), StreamingVFE's
 # last short batch, K(x*, Z) of the streaming models' predictions and
-# OnlineSGPR's K(Z, Z_old), and the samplers' K(x*, X) and K(x*, Z).
+# OnlineSGPR's K(Z, Z_old), and the samplers' K(x*, X) and K(x*, Z); phases
+# 31-35's: the candidates' and a refinement point's K(X, ·), the paths at
+# the q points and at q-EI's candidates, the design's references, the
+# kernel search's Grams.  Shapes whose n grows as a path runs (the BayesOpt
+# loop, the believer picks, the design's conditioned posteriors) and the
+# small float64 checks' are held against the twin as they launch
+# (held_gram_launches).
 GRAM_CASES = [
     ("sym+diag", N, N, True, D, True),
     ("cross", N, Q, False, D, False),
@@ -647,6 +758,14 @@ GRAM_CASES = [
     ("path Ksx", PATH_CANDIDATES, N, False, D, False),
     ("path Ksz", PATH_CANDIDATES, SP_M, False, SP_D, False),
     ("path Ksx it", PATH_CANDIDATES, IT_N, False, D, False),
+    ("bo Kxc", N, BO_CANDIDATES, False, D, False),
+    ("bo Kxq", N, 1, False, D, False),
+    ("bo paths", BO_TS_Q, N, False, D, False),
+    ("qei Kcx", BO_QEI_CANDIDATES, N, False, D, False),
+    ("de Kxr", N, DE_REF, False, D, False),
+    ("de Krc", DE_REF, BO_CANDIDATES, False, D, False),
+    ("ks K", KS_N, KS_N, True, 1, True),
+    ("ks K default", KS_DEFAULT_N, KS_DEFAULT_N, True, 1, True),
 ]
 # K1's batched cases, (label, B, n1, n2, symmetric, d, noise on the
 # diagonal), with a var and a diag of each member's own: the fleet's Grams
@@ -654,7 +773,8 @@ GRAM_CASES = [
 # path's neighbour Grams and cross columns of a full chunk, of the last
 # chunk (n = 200000 leaves 3392 rows) and of a query batch; the deep GP's
 # hidden layers' K(Z, F) over their samples (all n, a batch at S = 1 and
-# 4, the 20 samples of predict_f).
+# 4, the 20 samples of predict_f); the k-fold fleet's training Grams and
+# its held-out cross Grams.
 GRAM_BATCHED_CASES = [
     ("fleet K", EN_B, EN_N, EN_N, True, EN_D, True),
     ("fleet Ks", EN_B, EN_N, Q, False, EN_D, False),
@@ -668,6 +788,8 @@ GRAM_BATCHED_CASES = [
     ("dgp Kzf batch", 1, DGP_M, DGP_BATCH, False, SP_D, False),
     ("dgp Kzf S", DGP_LAUNCH_SAMPLES, DGP_M, DGP_BATCH, False, SP_D, False),
     ("dgp Kzf query", DGP_PRED_SAMPLES, DGP_M, Q, False, SP_D, False),
+    ("cv K", CV_K, CV_N - CV_N // CV_K, CV_N - CV_N // CV_K, True, D, True),
+    ("cv Ks", CV_K, CV_N - CV_N // CV_K, CV_N // CV_K, False, D, False),
 ]
 
 
@@ -5817,6 +5939,808 @@ def sparse_variant_phases(torch, it_pathwise):
     return out, paths, seconds
 
 
+@contextlib.contextmanager
+def held_gram_launches(torch):
+    """Holds the first K1 launch of each shape made inside the block, where
+    gram_phase's cases do not cover it, against the twin on the same inputs
+    (outside a graph capture; the warm step before a capture is held): yields
+    {(n1, n2, symmetric, d, batch, dtype): max |kernel − twin| / var as a
+    device tensor}, read by check_held_grams.  Every shape launched is also
+    added to ``shapes`` of gram_launch_shapes, for check_gram_coverage."""
+    from gptorch_tpu_torch.ops import gram
+
+    covered = {(n1, n2, sym, d, None) for _, n1, n2, sym, d, _ in GRAM_CASES}
+    covered |= {(n1, n2, sym, d, b) for _, b, n1, n2, sym, d, _ in GRAM_BATCHED_CASES}
+    held, launch = {}, gram._launch
+
+    def holding(x1, x2, var, diag):
+        out = launch(x1, x2, var, diag)
+        n2 = x1.shape[-2] if x2 is None else x2.shape[-2]
+        batch = x1.shape[0] if x1.ndim == 3 else None
+        key = (x1.shape[-2], n2, x2 is None, x1.shape[-1], batch, dtype_name(x1.dtype))
+        if key[:5] not in covered and key not in held and not torch.cuda.is_current_stream_capturing():
+            with torch.no_grad():
+                plain = gram.rbf_gram_plain(x1, x2, var, diag)
+                scale = var if var.ndim == 0 else var[:, None, None]
+                held[key] = ((out - plain).abs() / scale).amax()
+        return out
+
+    gram._launch = holding
+    try:
+        yield held
+    finally:
+        gram._launch = launch
+
+
+def check_held_grams(held, what):
+    """Fails unless every K1 launch held by held_gram_launches agrees with
+    the twin to gram_phase's limit (TOL·1.3 per unit of var)."""
+    errors = {key: float(err) for key, err in held.items()}
+    worst = {name: max((e for k, e in errors.items() if k[5] == name), default=0.0) for name in TOL}
+    print(f"# {what}: {len(errors)} K1 shapes held against the twin as they launched (n grows, or a small float64 "
+          f"check); worst max|kernel-plain|/var {worst} (tol {TOL['float32'] * 1.3:.1e} / {TOL['float64'] * 1.3:.1e})",
+          flush=True)
+    for key, err in errors.items():
+        check(err <= TOL[key[5]] * 1.3, f"{what}: rbf_gram at {key} error {err} against the twin")
+    return {"shapes": len(errors), "worst": worst}
+
+
+@contextlib.contextmanager
+def new_path_grams(torch):
+    """gram_launch_shapes and held_gram_launches together: yields (shapes,
+    held), and check_gram_coverage then sees the shapes that were not
+    held."""
+    with gram_launch_shapes() as shapes, held_gram_launches(torch) as held:
+        yield shapes, held
+
+
+def unheld_shapes(shapes, held):
+    return {s for s in shapes if s not in held}
+
+
+def timed_reading(torch, out, name, fn):
+    """Runs ``fn`` once, synchronised on both sides, inside a counted block:
+    records under out["readings"][name] its host-wall ms, its K1 launches
+    and the peak device memory of the call; adds the launches to
+    out["launches"].  Returns fn's result."""
+    launches = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with counted(launches):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    merge_counts(out["launches"], launches)
+    out.setdefault("readings", {})[name] = {"ms": ms, "rbf_gram": launches["rbf_gram"],
+                                             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return result
+
+
+def in_box(x, bounds):
+    x = np.atleast_2d(np.asarray(x))
+    return bool(np.all(x >= bounds[:, 0]) and np.all(x <= bounds[:, 1]))
+
+
+def box_candidates(torch, generator, n, bounds, like):
+    """bayesopt's candidate draw: ``n`` uniform points in the box from
+    ``generator`` (sampling.uniform, as suggest draws them)."""
+    from gptorch_tpu_torch import sampling
+
+    lo, hi = (torch.as_tensor(bounds[:, i], dtype=like.dtype, device=like.device) for i in (0, 1))
+    return lo[None] + sampling.uniform(generator, (n, bounds.shape[0]), lo) * (hi - lo)[None]
+
+
+def bayesopt_phase(torch):
+    """bayesopt at the serving cell; see the module docstring, phase 31.
+    Returns its results and the float32 posterior, which the design phase
+    uses."""
+    from gptorch_tpu_torch import bayesopt, kernels, likelihoods, settings
+    from gptorch_tpu_torch.models import GPR
+
+    out = {"n": N, "d": D, "launches": {}, "readings": {}}
+    bounds = np.array([[-BO_BOX, BO_BOX]] * D)
+    x, y, _ = make_data(N, D, np.float32)
+    with new_path_grams(torch) as (shapes, held), settings.override(jitter_policy="fixed"):
+        model = GPR(x, y, kernels.Rbf(D, ARD=True), likelihood=likelihoods.Gaussian(0.1))
+        post = timed_reading(torch, out, "posterior()", model.posterior)
+        cached = bayesopt._CachedPosterior(post, model.Y)
+        best = torch.min(model.Y)
+        gen = torch.Generator(device="cuda").manual_seed(31)
+        cand = box_candidates(torch, gen, BO_CANDIDATES, bounds, post.X)
+        with torch.no_grad():
+            for name in sorted(bayesopt.ACQUISITIONS):
+                bayesopt.score_candidates(post, cand, best, name)  # warm
+                timed_reading(torch, out, f"score {name}", lambda: bayesopt.score_candidates(post, cand, best, name))
+            out["score_ms_cuda_events"] = time_ms(lambda: bayesopt.score_candidates(post, cand, best, "ei"), 5)
+        state = gen.get_state()
+        suggest = lambda: bayesopt.suggest(cached, bounds, n_candidates=BO_CANDIDATES, refine_steps=BO_STEPS,
+                                           generator=gen)
+        suggest()  # warm, from the same candidates
+        gen.set_state(state)
+        xs = timed_reading(torch, out, "suggest", suggest)
+        # the point is the refined one only where its EI is at least the best
+        # candidate's; else it is that candidate
+        gen.set_state(state)
+        cand = box_candidates(torch, gen, BO_CANDIDATES, bounds, post.X)
+        with torch.no_grad():
+            scores = bayesopt.score_candidates(post, cand, best, "ei")
+            best_cand = cand[torch.argmax(scores)].cpu().numpy()
+            ei_x = float(bayesopt.score_candidates(post, torch.as_tensor(xs[None], device="cuda"), best, "ei")[0])
+        out["ei_suggestion"], out["ei_best_candidate"] = ei_x, float(scores.max())
+        out["refined"] = ei_x >= out["ei_best_candidate"]
+        check(out["refined"] or np.array_equal(xs, best_cand),
+              f"bayesopt: suggest returned a point whose EI {ei_x} is below the best candidate's "
+              f"{out['ei_best_candidate']} and that is not that candidate")
+        out["thompson"] = timed_reading(torch, out, "suggest_thompson", lambda: bayesopt.suggest_thompson(
+            cached, bounds, q=BO_TS_Q, n_candidates=BO_CANDIDATES, num_features=BO_FEATURES, generator=gen))
+        out["qei"] = timed_reading(torch, out, "suggest_qei", lambda: bayesopt.suggest_qei(
+            cached, bounds, q=BO_QEI_Q, n_samples=BO_QEI_SAMPLES, n_candidates=BO_QEI_CANDIDATES,
+            num_features=BO_FEATURES, refine_steps=BO_QEI_STEPS, generator=gen))
+
+        def believer():
+            picks, p, yn = [], post, model.Y
+            for _ in range(BO_BELIEVER):
+                xb = bayesopt.suggest(bayesopt._CachedPosterior(p, yn), bounds, n_candidates=BO_CANDIDATES,
+                                      refine_steps=BO_STEPS, generator=gen)
+                mu, _ = p.predict_f(xb[None])
+                p = p.condition_on(xb[None], mu)
+                yn = torch.cat([yn, torch.as_tensor(mu, device="cuda")])
+                picks.append(xb)
+            return np.stack(picks)
+
+        out["believer"] = timed_reading(torch, out, f"believer x{BO_BELIEVER}", believer)
+        for name, pts in (("suggest", xs), ("thompson", out["thompson"]), ("qei", out["qei"]),
+                          ("believer", out["believer"])):
+            check(np.isfinite(pts).all() and in_box(pts, bounds), f"bayesopt: {name} left the box: {pts}")
+        check(len(np.unique(np.round(out["believer"], 5), axis=0)) == BO_BELIEVER,
+              "bayesopt: believer picks repeat a point")
+        out["f32_vs_f64_ei"] = bo_f32_vs_f64(torch, x, y, post, cand, scores)
+    check(out["launches"]["rbf_gram"] > 0, "bayesopt never launched rbf_gram")
+    out["held"] = check_held_grams(held, "bayesopt")
+    out["rbf_gram_shapes"] = unheld_shapes(shapes, held)
+    out["peak_mem_gb"] = max(r["peak_gb"] for r in out["readings"].values())
+    out["card_vs_cpu"] = bo_card_vs_cpu(torch)
+    r = out["readings"]
+    print(f"# bayesopt n={N} d={D} f32 over [-{BO_BOX}, {BO_BOX}]^{D}: posterior() {r['posterior()']['ms']:.1f} ms; "
+          f"score_candidates over {BO_CANDIDATES} "
+          + ", ".join(f"{k[6:]} {v['ms']:.2f} ms" for k, v in r.items() if k.startswith("score "))
+          + f" (ei {out['score_ms_cuda_events']:.3f} ms by CUDA events); suggest ({BO_CANDIDATES} candidates, "
+          f"{BO_STEPS} steps) {r['suggest']['ms']:.1f} ms, {r['suggest']['rbf_gram']} K1 launches, refined "
+          f"{out['refined']} (EI {ei_x:.4e} vs best candidate {out['ei_best_candidate']:.4e}); suggest_thompson "
+          f"q={BO_TS_Q} {r['suggest_thompson']['ms']:.1f} ms; suggest_qei q={BO_QEI_Q} ({BO_QEI_SAMPLES} paths, "
+          f"{BO_QEI_CANDIDATES} candidates, {BO_QEI_STEPS} steps) {r['suggest_qei']['ms']:.1f} ms; {BO_BELIEVER} "
+          f"believer picks {r[f'believer x{BO_BELIEVER}']['ms']:.1f} ms; peak {out['peak_mem_gb']:.2f} GB; launches "
+          f"{out['launches']}", flush=True)
+    print(f"# bayesopt readings: {json.dumps({k: {kk: round(vv, 4) for kk, vv in v.items()} for k, v in r.items()})}",
+          flush=True)
+    return out, post
+
+
+def bo_f32_vs_f64(torch, x, y, post32, cand32, scores32):
+    """EI over the candidates from the float64 posterior of the same model
+    against the float32 one's, absolute (y's units)."""
+    from gptorch_tpu_torch import bayesopt, kernels, likelihoods
+    from gptorch_tpu_torch.models import GPR
+
+    with default_dtype(torch, torch.float64), torch.no_grad():
+        model = GPR(x.astype(np.float64), y.astype(np.float64), kernels.Rbf(D, ARD=True),
+                    likelihood=likelihoods.Gaussian(0.1))
+        post = model.posterior()
+        s64 = bayesopt.score_candidates(post, cand32.double(), torch.min(model.Y), "ei")
+        gap = float((scores32.double() - s64).abs().max())
+        del model, post
+    torch.cuda.empty_cache()
+    print(f"# bayesopt EI over {BO_CANDIDATES} candidates, float32 vs float64 posterior: max abs {gap:.3e} (largest EI "
+          f"{float(s64.max()):.3e}; tol {SERVING_TOL})", flush=True)
+    check(gap <= SERVING_TOL, f"bayesopt: float32 EI off float64 by {gap}")
+    return gap
+
+
+def bo_card_vs_cpu(torch):
+    """suggest, suggest_thompson and suggest_qei in float64 at BO_CHECK_N,
+    the card against the CPU with the CPU's draws replayed: the same points
+    to F64_REL_TOL (absolute, in the box's units)."""
+    from gptorch_tpu_torch import bayesopt, kernels, likelihoods
+    from gptorch_tpu_torch.models import GPR
+
+    x, y, _ = make_data(BO_CHECK_N, D, np.float64)
+    bounds = np.array([[-BO_BOX, BO_BOX]] * D)
+    calls = {
+        "suggest": lambda m, g: bayesopt.suggest(m, bounds, n_candidates=BO_CANDIDATES, refine_steps=BO_STEPS,
+                                                 generator=g),
+        "thompson": lambda m, g: bayesopt.suggest_thompson(m, bounds, q=BO_TS_Q, n_candidates=1024, num_features=256,
+                                                           refine_steps=10, generator=g),
+        "qei": lambda m, g: bayesopt.suggest_qei(m, bounds, q=2, n_samples=16, n_candidates=512, num_features=256,
+                                                 refine_steps=10, generator=g),
+    }
+    gaps = {}
+    for name, call in calls.items():
+        runs, draws = {}, []
+        for device in ("cpu", "cuda"):
+            with default_dtype(torch, torch.float64), recorded_draws(torch, draws):
+                model = GPR(x, y, kernels.Rbf(D, ARD=True), likelihood=likelihoods.Gaussian(0.1), device=device)
+                runs[device] = call(model, torch.Generator(device=device))
+        gaps[name] = float(np.abs(runs["cuda"] - runs["cpu"]).max())
+    print(f"# bayesopt f64 n={BO_CHECK_N} (draws held): card vs CPU max abs point gaps {gaps} (tol {F64_REL_TOL})",
+          flush=True)
+    check(all(g <= F64_REL_TOL for g in gaps.values()), f"bayesopt f64 card vs CPU: {gaps}")
+    return gaps
+
+
+def levy(u):
+    """The Levy function (minimum 0 at x = 1) of x = −10 + 20u, u in [0, 1]^d."""
+    x = -10.0 + 20.0 * np.asarray(u, dtype=float)
+    w = 1.0 + (x - 1.0) / 4.0
+    return float(np.sin(np.pi * w[0]) ** 2 + np.sum((w[:-1] - 1) ** 2 * (1 + 10 * np.sin(np.pi * w[:-1] + 1) ** 2))
+                 + (w[-1] - 1) ** 2 * (1 + np.sin(2 * np.pi * w[-1]) ** 2))
+
+
+@contextlib.contextmanager
+def capture_seconds(torch):
+    """Seconds spent making each captured fit_scan step inside the block
+    (fit._CapturedSteps: the warm step and the capture)."""
+    from gptorch_tpu_torch.training import fit
+
+    spent, init = [], fit._CapturedSteps.__init__
+
+    def timed(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        init(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+
+    fit._CapturedSteps.__init__ = timed
+    try:
+        yield spent
+    finally:
+        fit._CapturedSteps.__init__ = init
+
+
+def bayesopt_loop_phase(torch):
+    """BayesOpt's suggest/observe loop; see the module docstring, phase 32."""
+    from gptorch_tpu_torch import bayesopt, kernels, settings
+
+    out = {"n0": LOOP_N0, "d": D, "launches": {}, "iterations": []}
+    bounds = np.array([[0.0, 1.0]] * D)
+    rng = np.random.RandomState(32)
+    x0 = rng.rand(LOOP_N0, D)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with new_path_grams(torch) as (shapes, held), default_dtype(torch, torch.float64), \
+            settings.override(jitter_policy="none"):
+        bo = bayesopt.BayesOpt(bounds=bounds, kernel=lambda: kernels.Rbf(D, ARD=True), fit_iters=LOOP_FIT_ITERS,
+                               refit_every=LOOP_REFIT, n_candidates=BO_CANDIDATES, seed=32)
+        check(bo.device.type == "cuda", "BayesOpt did not land on the card")
+        for u in x0:
+            bo.observe(u, levy(u))
+        best, fantasy_gap = [bo.best_y], None
+        for _ in range(LOOP_ITERS):
+            it = {"refit": bo._post is None}
+            launches = {}
+            with counted(launches):
+                if it["refit"]:
+                    with capture_seconds(torch) as cap:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        bo._fit()
+                        torch.cuda.synchronize()
+                        it["fit_ms"] = 1e3 * (time.perf_counter() - t0)
+                    it["capture_ms"] = 1e3 * sum(cap)
+                    check_captured("bayesopt_loop: a refit")
+                    merge_counts(launches, replayed_launches())
+                t0 = time.perf_counter()
+                xs = bo.suggest()
+                torch.cuda.synchronize()
+                it["suggest_ms"] = 1e3 * (time.perf_counter() - t0)
+                check(in_box(xs, bounds), f"bayesopt_loop: suggestion out of the box: {xs}")
+                t0 = time.perf_counter()
+                bo.observe(xs, levy(xs))
+                torch.cuda.synchronize()
+                it["observe_ms"] = 1e3 * (time.perf_counter() - t0)
+            it["rbf_gram"] = launches["rbf_gram"]
+            merge_counts(out["launches"], launches)
+            out["iterations"].append(it)
+            best.append(bo.best_y)
+            if fantasy_gap is None and bo._post is not None and len(bo.Y) - bo._n_fit == LOOP_REFIT - 1:
+                fantasy_gap = loop_fantasy_gap(bo)
+        check(all(b1 <= b0 for b0, b1 in zip(best, best[1:])), f"bayesopt_loop: best_y rose: {best}")
+        check(fantasy_gap is not None and fantasy_gap <= LOOP_FANTASY_TOL,
+              f"bayesopt_loop: fantasy posterior off a fresh factorization by {fantasy_gap}")
+        out["batches"] = {}
+        for strategy in ("ts", "believer", "qei"):
+            refit = bo._post is None
+            batch = timed_reading(torch, out, f"suggest_batch {strategy}", lambda: bo.suggest_batch(LOOP_BATCH, strategy))
+            if refit:
+                check_captured("bayesopt_loop: a refit")
+                merge_counts(out["launches"], replayed_launches())
+            check(batch.shape == (LOOP_BATCH, D) and in_box(batch, bounds), f"bayesopt_loop: bad {strategy} batch")
+            out["batches"][strategy] = batch
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["matern"] = loop_matern(torch, bayesopt, bounds, x0)
+    check(out["launches"]["rbf_gram"] > 0, "the bayesopt loop never launched rbf_gram")
+    out["held"] = check_held_grams(held, "bayesopt_loop")
+    out["rbf_gram_shapes"] = unheld_shapes(shapes, held)
+    out["best_y"], out["fantasy_gap"] = best, fantasy_gap
+    refits = [it for it in out["iterations"] if it["refit"]]
+    fantasies = [it for it in out["iterations"] if not it["refit"]]
+    total = lambda it: it.get("fit_ms", 0.0) + it["suggest_ms"] + it["observe_ms"]
+    out["refit_ms"] = float(np.median([total(it) for it in refits]))
+    out["fantasy_ms"] = float(np.median([total(it) for it in fantasies]))
+    out["capture_share"] = float(np.median([it["capture_ms"] / it["fit_ms"] for it in refits]))
+    r = out["readings"]
+    print(f"# bayesopt_loop Levy d={D} f64, {LOOP_N0} observations then {LOOP_ITERS} iterations (Rbf-ARD, "
+          f"{LOOP_FIT_ITERS} captured Adam steps a refit, refit every {LOOP_REFIT}): median ms an iteration: refit "
+          f"{out['refit_ms']:.1f} (fit {np.median([it['fit_ms'] for it in refits]):.1f}, of it capture "
+          f"{100 * out['capture_share']:.0f} %), fantasy {out['fantasy_ms']:.1f} (suggest "
+          f"{np.median([it['suggest_ms'] for it in fantasies]):.1f}, observe/condition_on "
+          f"{np.median([it['observe_ms'] for it in fantasies]):.2f}); K1 launches an iteration "
+          f"{[it['rbf_gram'] for it in out['iterations']]}; best_y {best[0]:.4f} -> {best[-1]:.4f}; fantasy vs fresh "
+          f"posterior {fantasy_gap:.2e} (tol {LOOP_FANTASY_TOL}); suggest_batch({LOOP_BATCH}) "
+          + ", ".join(f"{k[14:]} {v['ms']:.1f} ms" for k, v in r.items())
+          + f"; peak {out['peak_mem_gb']:.3f} GB; launches {out['launches']}; Matern52 default {out['matern']}",
+          flush=True)
+    return out
+
+
+def loop_fantasy_gap(bo):
+    """The loop's fantasy posterior against a fresh posterior() of a GPR on
+    all the observations at the refit's hyperparameters, predict_f at 64
+    points of the box: max abs gap over the largest moment."""
+    import copy
+
+    from gptorch_tpu_torch.models import GPR
+
+    mu, sd = bo._y_shift
+    yn = (np.asarray(bo.Y)[:, None] - mu) / sd
+    fresh = GPR(np.asarray(bo.X), yn, copy.deepcopy(bo._model.kernel), likelihood=copy.deepcopy(bo._model.likelihood),
+                fast=False, device=bo.device).posterior()
+    xq = np.random.RandomState(33).rand(64, D)
+    got, want = bo._post.predict_f(xq), fresh.predict_f(xq)
+    return max(float(np.abs(a - b).max()) / float(np.abs(b).max()) for a, b in zip(got, want))
+
+
+def loop_matern(torch, bayesopt, bounds, x0):
+    """LOOP_MATERN_ITERS iterations with the default kernel (Matern52, no
+    K1): ms an iteration and the K1 launches, which must be none."""
+    bo = bayesopt.BayesOpt(bounds=bounds, fit_iters=LOOP_FIT_ITERS, refit_every=LOOP_REFIT,
+                           n_candidates=BO_CANDIDATES, seed=34)
+    for u in x0:
+        bo.observe(u, levy(u))
+    launches, ms = {}, []
+    with counted(launches):
+        for _ in range(LOOP_MATERN_ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xs = bo.suggest()
+            bo.observe(xs, levy(xs))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            check(in_box(xs, bounds), "bayesopt_loop Matern52: suggestion out of the box")
+    check(launches["rbf_gram"] == 0, f"the Matern52 loop launched rbf_gram: {launches}")
+    return {"ms": [round(m, 1) for m in ms], "rbf_gram": launches["rbf_gram"], "best_y": bo.best_y}
+
+
+def design_phase(torch, post):
+    """design on phase 31's posterior; see the module docstring, phase 33."""
+    from gptorch_tpu_torch import design
+    from gptorch_tpu_torch.functions import trtrs
+
+    out = {"n": N, "q": DE_Q, "candidates": BO_CANDIDATES, "references": DE_REF, "launches": {}, "readings": {}}
+    bounds = np.array([[-BO_BOX, BO_BOX]] * D)
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    cand = box_candidates(torch, gen, BO_CANDIDATES, bounds, post.X)
+    ref = box_candidates(torch, gen, DE_REF, bounds, post.X)
+    with new_path_grams(torch) as (shapes, held):
+        picks = {}
+        for strategy in ("alc", "variance"):
+            kw = {"x_ref": ref} if strategy == "alc" else {}
+            picks[strategy] = timed_reading(torch, out, strategy, lambda: design.suggest_batch(
+                post, cand, q=DE_Q, strategy=strategy, **kw)[0])
+        with torch.no_grad():
+            kxc = post.kernel.K(post.X, cand)
+            out["stages_ms"] = {"K(X, x_cand)": time_ms(lambda: post.kernel.K(post.X, cand), 5),
+                                "L⁻¹K(X, x_cand)": time_ms(lambda: trtrs(kxc, post.L), 3)}
+            del kxc
+        out["alc_identity"] = alc_identity(torch, post, cand, ref, picks["alc"][0])
+    for strategy, idx in picks.items():
+        check(len(set(idx.tolist())) == DE_Q, f"design: {strategy} picked a candidate twice: {idx}")
+    check(out["launches"]["rbf_gram"] > 0, "design never launched rbf_gram")
+    out["held"] = check_held_grams(held, "design")
+    out["rbf_gram_shapes"] = unheld_shapes(shapes, held)
+    out["peak_mem_gb"] = max(r["peak_gb"] for r in out["readings"].values())
+    out["alc_f64"] = alc_identity_f64(torch)
+    n, c, itemsize = N, BO_CANDIDATES, 4
+    bounds_ms = {"K(X, x_cand)": gram_bound_ms(n, c, D, False, "float32", itemsize)[0],
+                 "L⁻¹K(X, x_cand)": bound_ms((n * (n + 1) // 2 + 2 * n * c) * itemsize, n * n * c, "float32")[0]}
+    out["stage_bounds_ms"] = bounds_ms
+    r = out["readings"]
+    print(f"# design n={N} f32, {BO_CANDIDATES} candidates, {DE_REF} references, q={DE_Q}: alc {r['alc']['ms']:.1f} ms "
+          f"({r['alc']['ms'] / DE_Q:.1f} ms a pick), variance {r['variance']['ms']:.1f} ms "
+          f"({r['variance']['ms'] / DE_Q:.1f} ms a pick); stages "
+          + ", ".join(f"{k} {v:.2f} ms (bound {bounds_ms[k]:.2f})" for k, v in out["stages_ms"].items())
+          + f"; peak {out['peak_mem_gb']:.2f} GB (each pick's condition_on makes an (n + 1)² factor); picks "
+          f"{ {k: v.tolist() for k, v in picks.items()} }; launches {out['launches']}", flush=True)
+    return out
+
+
+def alc_identity(torch, post, cand, ref, idx):
+    """The first pick's ALC against the variance drop over the references
+    that condition_on realizes, relative, in float32; and the same with the
+    candidate-reference Gram scaled by 1 + 2^-11, the control that must fail
+    DE_F32_TOL."""
+    from gptorch_tpu_torch import design
+
+    with torch.no_grad():
+        xq = cand[idx : idx + 1]
+        _, var0 = post.predict_f(ref)
+        mu, _ = post.predict_f(xq)
+        cond = post.condition_on(xq, mu)
+        _, var1 = cond.predict_f(ref)
+        realized = float(torch.sum(var0[:, 0].double() - var1[:, 0].double()))
+        del cond
+        alc = float(design.alc_acquisition(post, xq, ref)[0])
+        with scaled_rbf_grams(1.0 + 2.0 ** -11):
+            control = float(design.alc_acquisition(post, xq, ref)[0])
+    torch.cuda.empty_cache()
+    gap, control_gap = abs(alc - realized) / abs(realized), abs(control - realized) / abs(realized)
+    print(f"# design ALC identity f32 n={N}: ALC {alc:.6e}, realized drop {realized:.6e}, relative gap {gap:.3e} (tol "
+          f"{DE_F32_TOL:.0e}); control (Grams x (1 + 2^-11)) {control_gap:.3e}", flush=True)
+    check(gap <= DE_F32_TOL, f"design: the first pick's ALC is off its realized drop by {gap}")
+    check(control_gap > DE_F32_TOL, f"design: the control passed the ALC limit ({control_gap})")
+    return {"alc": alc, "realized": realized, "gap": gap, "control_gap": control_gap}
+
+
+def alc_identity_f64(torch):
+    """The ALC identity in float64 on the card at DE_F64_N (make_data):
+    DE_F64_TOL relative."""
+    from gptorch_tpu_torch import design, kernels, likelihoods
+    from gptorch_tpu_torch.models import GPR
+
+    x, y, _ = make_data(DE_F64_N, D, np.float64)
+    with default_dtype(torch, torch.float64), torch.no_grad():
+        post = GPR(x, y, kernels.Rbf(D, ARD=True), likelihood=likelihoods.Gaussian(0.1)).posterior()
+        rng = np.random.RandomState(35)
+        cand = torch.as_tensor(rng.uniform(-BO_BOX, BO_BOX, (64, D)), device="cuda")
+        ref = torch.as_tensor(rng.uniform(-BO_BOX, BO_BOX, (256, D)), device="cuda")
+        idx, cond = design.suggest_batch(post, cand, q=1, strategy="alc", x_ref=ref)
+        realized = float(torch.sum(post.predict_f(ref)[1][:, 0] - cond.predict_f(ref)[1][:, 0]))
+        alc = float(design.alc_acquisition(post, cand[idx], ref)[0])
+    gap = abs(alc - realized) / abs(realized)
+    print(f"# design ALC identity f64 n={DE_F64_N}: relative gap {gap:.3e} (tol {DE_F64_TOL:.0e})", flush=True)
+    check(gap <= DE_F64_TOL, f"design: float64 ALC off its realized drop by {gap}")
+    return gap
+
+
+def metrics_phase(torch, serving_post):
+    """metrics: kfold_cv and summarize; see the module docstring, phase 34."""
+    from gptorch_tpu_torch import kernels, likelihoods, metrics, settings
+
+    out = {"k": CV_K, "n": CV_N, "iters": CV_ITERS, "launches": {}, "readings": {}}
+    x, y, _ = make_data(CV_N, D, np.float32, seed=34)
+    with new_path_grams(torch) as (shapes, held), settings.override(jitter_policy="fixed"):
+        with capture_seconds(torch) as cap:
+            res = timed_reading(torch, out, "kfold_cv", lambda: metrics.kfold_cv(
+                x, y, lambda: kernels.Rbf(D, ARD=True), k=CV_K, likelihood_factory=lambda: likelihoods.Gaussian(0.1),
+                fit_iters=CV_ITERS, learning_rate=CV_LR, device="cuda"))
+        per_step = check_captured("metrics: the fold fleet")
+        merge_counts(out["launches"], replayed_launches())
+        out["capture_ms"] = 1e3 * sum(cap)
+        check(per_step.get("rbf_gram") == 1, f"metrics: the fleet's step launched K1 {per_step} times, not once")
+        ens = res["ensemble"]
+        # the fleet's steps alone: a second run replays the captured graph
+        timed_reading(torch, out, "fit replay", lambda: ens.fit("Adam", max_iter=CV_ITERS, learning_rate=CV_LR,
+                                                                 scan=True))
+        check_captured("metrics: the fleet's second fit")
+        merge_counts(out["launches"], replayed_launches())
+        out["fit_ms_per_iter"] = out["readings"]["fit replay"]["ms"] / CV_ITERS
+        del ens, res["ensemble"]
+        torch.cuda.empty_cache()
+        rng = np.random.RandomState(36)
+        batches = make_data(N, D, np.float32)[2]
+        with counted(out["launches"]):
+            preds = [serving_post.predict_y(xb) for xb in batches]
+        xq = np.concatenate(batches)
+        yq = np.sin(xq[:, :1]) + 0.1 * rng.randn(xq.shape[0], 1)
+        out["summary"] = metrics.summarize(yq, np.concatenate([p[0] for p in preds]),
+                                           np.concatenate([p[1] for p in preds]))
+    for key in ("fold_rmse", "fold_nlpd"):
+        check(np.isfinite(res[key]).all() and res[key].shape == (CV_K,), f"metrics: bad {key} {res[key]}")
+    check(all(np.isfinite(v) for v in out["summary"].values()), f"metrics: non-finite summary {out['summary']}")
+    check(out["launches"]["rbf_gram"] > 0, "metrics never launched rbf_gram")
+    out["held"] = check_held_grams(held, "metrics")
+    out["rbf_gram_shapes"] = unheld_shapes(shapes, held)
+    out["cv"] = {k: (v.tolist() if isinstance(v, np.ndarray) else v) for k, v in res.items()}
+    out["peak_mem_gb"] = max(r["peak_gb"] for r in out["readings"].values())
+    out["card_vs_cpu"] = cv_card_vs_cpu(torch)
+    r = out["readings"]
+    print(f"# metrics kfold_cv k={CV_K} n={CV_N} d={D} f32 ({CV_ITERS} captured Adam steps, one batched K1 launch of "
+          f"{CV_K} x {CV_N - CV_N // CV_K}^2 a step): {r['kfold_cv']['ms']:.1f} ms in all (capture "
+          f"{out['capture_ms']:.1f} ms), the steps alone {out['fit_ms_per_iter']:.3f} ms an iteration; fold rmse "
+          f"{np.round(res['fold_rmse'], 4).tolist()}, nlpd {np.round(res['fold_nlpd'], 4).tolist()}; summarize over "
+          f"{Q * BATCHES} serving queries {out['summary']}; peak {out['peak_mem_gb']:.3f} GB; launches "
+          f"{out['launches']}", flush=True)
+    return out
+
+
+def cv_card_vs_cpu(torch):
+    """kfold_cv in float64 at CV_CHECK_K folds of CV_CHECK_N rows, the card
+    against the CPU: fold RMSE and NLPD to F64_REL_TOL relative."""
+    from gptorch_tpu_torch import kernels, metrics
+
+    x, y, _ = make_data(CV_CHECK_N, D, np.float64, seed=37)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        with default_dtype(torch, torch.float64):
+            runs[device] = metrics.kfold_cv(x, y, lambda: kernels.Rbf(D, ARD=True), k=CV_CHECK_K,
+                                            fit_iters=CV_CHECK_ITERS, device=device)
+    gaps = {key: rel_gap(runs["cuda"][key], runs["cpu"][key]) for key in ("fold_rmse", "fold_nlpd")}
+    print(f"# metrics kfold_cv f64 k={CV_CHECK_K} n={CV_CHECK_N}: card vs CPU max relative gaps {gaps} (tol "
+          f"{F64_REL_TOL})", flush=True)
+    check(all(g <= F64_REL_TOL for g in gaps.values()), f"metrics f64 card vs CPU: {gaps}")
+    return gaps
+
+
+def ksearch_data(n, dtype):
+    """bench_ksearch.py's data: x ~ U(0, 12) sorted, y = x/2 + cos 3x + 0.1ε
+    (RandomState(1))."""
+    rng = np.random.RandomState(1)
+    x = np.sort(rng.uniform(0, 12, n))[:, None].astype(dtype)
+    return x, (0.5 * x + np.cos(3.0 * x) + 0.1 * rng.randn(n, 1)).astype(dtype)
+
+
+@contextlib.contextmanager
+def lbfgs_evaluations():
+    """The L-BFGS evaluations and iterations of every fit_scan call inside
+    the block, summed.  Inside it fit_scan is the wrapper, so fit records
+    each run on the wrapper's ``last_run``."""
+    from gptorch_tpu_torch.training import fit
+
+    total, fit_scan = [0, 0], fit.fit_scan
+
+    def counting(*args, **kwargs):
+        result = fit_scan(*args, **kwargs)
+        total[0] += int(np.sum(fit.fit_scan.last_run["evaluations"] or 0))
+        total[1] += fit.fit_scan.last_run["steps"]
+        return result
+
+    counting.last_run = None
+    fit.fit_scan = counting
+    try:
+        yield total
+    finally:
+        fit.fit_scan = fit_scan
+
+
+def structure_phase(torch):
+    """kernel_search at bench_ksearch.py's cell and the default search; see
+    the module docstring, phase 35."""
+    from gptorch_tpu_torch import structure
+
+    out = {"launches": {}, "readings": {}}
+    searches = {"bench_ksearch": (KS_N, np.float32, dict(bases=("Rbf", "Linear"), max_depth=2, max_iter=KS_ITERS)),
+                "default": (KS_DEFAULT_N, np.float64, dict(max_iter=KS_DEFAULT_ITERS))}
+    with new_path_grams(torch) as (shapes, held):
+        for name, (n, dtype, kw) in searches.items():
+            x, y = ksearch_data(n, dtype)
+            with lbfgs_evaluations() as evals, default_dtype(torch, torch.float64 if dtype == np.float64 else
+                                                              torch.float32):
+                res = timed_reading(torch, out, name, lambda: structure.kernel_search(x, y, device="cuda", **kw))
+            ms = out["readings"][name]["ms"]
+            out[name] = {"n": n, "dtype": np.dtype(dtype).name, "expression": res.expression, "score": res.score,
+                         "candidates": len(res.history), "candidates_per_min": 60e3 * len(res.history) / ms,
+                         "lbfgs_evaluations": evals[0], "lbfgs_iterations": evals[1]}
+            check(np.isfinite(res.score), f"kernel_search {name}: non-finite score")
+        t0 = time.perf_counter()
+        out["card_vs_cpu"] = ksearch_card_vs_cpu(torch, structure)
+        out["card_vs_cpu"]["s"] = time.perf_counter() - t0
+    check(out["launches"]["rbf_gram"] > 0, "kernel_search never launched rbf_gram")
+    out["held"] = check_held_grams(held, "kernel_search")
+    out["rbf_gram_shapes"] = unheld_shapes(shapes, held)
+    out["peak_mem_gb"] = max(r["peak_gb"] for r in out["readings"].values())
+    print("# kernel_search: " + "; ".join(
+        f"{name} n={o['n']} {o['dtype']}: {o['candidates']} candidates in {out['readings'][name]['ms'] / 1e3:.2f} s "
+        f"({o['candidates_per_min']:.1f} a minute), '{o['expression']}' (BIC {o['score']:.3f}), {o['lbfgs_evaluations']} "
+        f"L-BFGS evaluations over {o['lbfgs_iterations']} iterations, {out['readings'][name]['rbf_gram']} K1 launches"
+        for name, o in ((k, out[k]) for k in searches))
+          + f"; the float64 check {out['card_vs_cpu']['s']:.1f} s; peak {out['peak_mem_gb']:.3f} GB", flush=True)
+    return out
+
+
+def ksearch_card_vs_cpu(torch, structure):
+    """bench_ksearch.py's search in float64, the card against the CPU: the
+    same expression and history, scores to KS_REL_TOL relative."""
+    x, y = ksearch_data(KS_N, np.float64)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        with default_dtype(torch, torch.float64):
+            runs[device] = structure.kernel_search(x, y, bases=("Rbf", "Linear"), max_depth=2, max_iter=KS_ITERS,
+                                                   device=device)
+    a, b = runs["cuda"], runs["cpu"]
+    gap = max(abs(s.score - t.score) / abs(t.score) for s, t in zip(a.history, b.history))
+    same = a.expression == b.expression and [s.expression for s in a.history] == [s.expression for s in b.history]
+    print(f"# kernel_search f64 n={KS_N}: card '{a.expression}' vs CPU '{b.expression}', histories the same {same}, "
+          f"max relative score gap {gap:.3e} (tol {KS_REL_TOL})", flush=True)
+    check(same and gap <= KS_REL_TOL, f"kernel_search f64 card vs CPU: {a.expression} vs {b.expression}, gap {gap}")
+    return {"expression": a.expression, "gap": gap}
+
+
+def checkpoint_phase(torch):
+    """Checkpoint round trips of the serving model, a StreamingVFE and an
+    OnlineSGPR, load_trainable under a cached fit_scan graph, and the
+    profiling hooks; see the module docstring, phase 35."""
+    from gptorch_tpu_torch import kernels, likelihoods, settings
+    from gptorch_tpu_torch.models import GPR
+    from gptorch_tpu_torch.training import checkpoint, fit
+
+    out = {"launches": {}, "readings": {}}
+    x, y, xq = make_data(N, D, np.float32)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    with new_path_grams(torch) as (shapes, held), settings.override(jitter_policy="fixed"):
+        def serving_model():
+            return GPR(x, y, kernels.Rbf(D, ARD=True), likelihood=likelihoods.Gaussian(0.1), fast=True,
+                       fast_block=TRAIN_NB, fast_jitter=TRAIN_JITTER)
+
+        model = serving_model()
+        start = os.path.join(tmp, "start.npz")
+        with counted(out["launches"]):
+            checkpoint.save_trainable(start, model)
+            first = fit.fit_scan(model, "Adam", max_iter=CK_STEPS, learning_rate=TRAIN_LR)[1].cpu()
+            check_captured("checkpoint")
+            merge_counts(out["launches"], replayed_launches())
+            graphs = len(fit._GRAPHS.get(model, {}))
+            checkpoint.load_trainable(start, model)
+            again = fit.fit_scan(model, "Adam", max_iter=CK_STEPS, learning_rate=TRAIN_LR)[1].cpu()
+            merge_counts(out["launches"], replayed_launches())
+            check(len(fit._GRAPHS.get(model, {})) == graphs, "checkpoint: load_trainable made fit_scan capture anew")
+            fresh = checkpoint.load_trainable(start, serving_model())
+            want = fit.fit_scan(fresh, "Adam", max_iter=CK_STEPS, learning_rate=TRAIN_LR)[1].cpu()
+            merge_counts(out["launches"], replayed_launches())
+            full = os.path.join(tmp, "serving.npz")
+            checkpoint.save(full, model)
+            loaded = checkpoint.load(full, serving_model())
+            with torch.no_grad():
+                l_model, l_loaded = float(model.loss()), float(loaded.loss())
+                p_model, p_loaded = model.posterior().predict_f(xq[0]), loaded.posterior().predict_f(xq[0])
+        out["replay_vs_fresh"] = float((again - want).abs().max() / want.abs().max())
+        out["first_vs_fresh"] = float((first - want).abs().max() / want.abs().max())
+        out["serving_loss_gap"] = abs(l_model - l_loaded) / abs(l_model)
+        out["serving_predict_gap"] = max(float(np.abs(a - b).max() / np.abs(a).max()) for a, b in zip(p_model, p_loaded))
+        del model, fresh, loaded
+        torch.cuda.empty_cache()
+        out["streaming"], out["online"] = sparse_checkpoints(torch, tmp, checkpoint)
+    out["profiling"] = run_profiling_check(tmp)
+    for key in ("replay_vs_fresh", "first_vs_fresh", "serving_loss_gap", "serving_predict_gap"):
+        check(out[key] <= CK_F32_TOL, f"checkpoint: {key} {out[key]} > {CK_F32_TOL}")
+    check(out["launches"]["rbf_gram"] > 0, "the checkpoint path never launched rbf_gram")
+    out["held"] = check_held_grams(held, "checkpoint")
+    out["rbf_gram_shapes"] = unheld_shapes(shapes, held)
+    print(f"# checkpoint: serving model (n={N}) {CK_STEPS} captured Adam steps after load_trainable replay the cached "
+          f"graph, losses {again.tolist()} vs a fresh model from the file {want.tolist()} (max relative "
+          f"{out['replay_vs_fresh']:.1e}); full save/load loss gap {out['serving_loss_gap']:.1e}, predict_f gap "
+          f"{out['serving_predict_gap']:.1e}; StreamingVFE {out['streaming']}; OnlineSGPR {out['online']}; profiling "
+          f"{out['profiling']}; launches {out['launches']}", flush=True)
+    return out
+
+
+def sparse_checkpoints(torch, tmp, checkpoint):
+    """save/load of a StreamingVFE streamed over the sparse cell (float32)
+    and of an OnlineSGPR after one step of its first batch (float64, "none"
+    policy, phase 29's shapes): bound or predict_f gaps of the loaded model,
+    which must be 0."""
+    from gptorch_tpu_torch import settings
+
+    x, y, z = sparse_data(SP_N, SP_D, SP_M, np.float32)
+    xq = torch.as_tensor(x[:Q], device="cuda")
+    with torch.no_grad():
+        s = stream_model(torch, np.float32, z=z)
+        for xb, yb in stream_batches(torch, x, y, np.float32):
+            s = s.update(xb, yb)
+        path = os.path.join(tmp, "stream.npz")
+        checkpoint.save(path, s)
+        loaded = checkpoint.load(path, stream_model(torch, np.float32, z=z))
+        bound = float(s.log_likelihood())
+        mean = s.predict_f(xq)[0]
+        stream = {"bound_gap": abs(bound - float(loaded.log_likelihood())) / abs(bound),
+                  "mean_gap": float((mean - loaded.predict_f(xq)[0]).abs().max() / mean.abs().max()),
+                  "n_seen": float(loaded.n_seen)}
+    x64, y64, z64 = x.astype(np.float64), y.astype(np.float64), z.astype(np.float64)
+    with settings.override(jitter_policy="none"):
+        o = online_model(torch, np.float64, z64)
+        o.step(x64[:SP_BATCH], y64[:SP_BATCH], fit_iters=5, learning_rate=ON_LR)
+        path = os.path.join(tmp, "online.npz")
+        checkpoint.save(path, o)
+        target = online_model(torch, np.float64, z64)
+        target.step(x64[:64], y64[:64], fit_iters=0)  # makes the old-state slots
+        loaded = checkpoint.load(path, target)
+        with torch.no_grad():
+            (m0, v0), (m1, v1) = o.predict_f(xq.double()), loaded.predict_f(xq.double())
+        online = {"mean_gap": float((m0 - m1).abs().max() / m0.abs().max()),
+                  "var_gap": float((v0 - v1).abs().max() / v0.abs().max())}
+    for name, gaps, tol in (("StreamingVFE", stream, CK_F32_TOL), ("OnlineSGPR", online, CK_F64_TOL)):
+        for key, gap in gaps.items():
+            if key != "n_seen":
+                check(gap <= tol, f"checkpoint {name}: {key} {gap} > {tol} after a round trip")
+    check(stream["n_seen"] == float(SP_N), f"checkpoint StreamingVFE: n_seen {stream['n_seen']}")
+    return stream, online
+
+
+def profiling_check(log_dir):
+    """profiling.trace around one serving predict_f with annotate("gram"):
+    the trace file must name K1's kernel and the range, and
+    device_memory_stats's peak must be torch's.  Prints the result as JSON
+    and returns 0 or 1.  Run by a fresh process of this script
+    (``--profiling-check DIR``): in a process that has traced ~300000
+    device activities before (the earlier phases' torch.profiler sessions
+    add up to that), later traces on an H100 hold no kernel records of a
+    short window, with or without a pause at its start."""
+    import torch
+
+    from gptorch_tpu_torch import kernels, likelihoods, profiling, settings
+    from gptorch_tpu_torch.models import GPR
+
+    x, y, xq = make_data(N, D, np.float32)
+    with settings.override(jitter_policy="fixed"):
+        post = GPR(x, y, kernels.Rbf(D, ARD=True), likelihood=likelihoods.Gaussian(0.1)).posterior()
+        post.predict_f(xq[1])  # warm
+        launches = {}
+        torch.cuda.synchronize()
+        with counted(launches):
+            with profiling.trace(log_dir):
+                with profiling.annotate("gram"):
+                    post.predict_f(xq[0])
+                torch.cuda.synchronize()
+    files = [os.path.join(root, f) for root, _, names in os.walk(log_dir) for f in names]
+    events = json.load(open(files[0]))["traceEvents"] if files else []
+    kernel_names = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    stats = profiling.device_memory_stats()
+    out = {"files": len(files), "kernels": len(kernel_names),
+           "names_rbf_gram_kernel": any("rbf_gram_kernel" in k for k in kernel_names),
+           "names_gram_range": any(e.get("name") == "gram" for e in events), "rbf_gram": launches["rbf_gram"],
+           "peak_equal": stats["peak_bytes_in_use"] == torch.cuda.max_memory_allocated(),
+           "bytes_limit_gb": stats["bytes_limit"] / 1e9}
+    print(json.dumps(out), flush=True)
+    ok = out["files"] == 1 and out["names_rbf_gram_kernel"] and out["names_gram_range"] and out["peak_equal"]
+    return 0 if ok and out["rbf_gram"] > 0 else 1
+
+
+def run_profiling_check(tmp):
+    """profiling_check in a fresh process of this script on the card: its
+    JSON result, checked."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--profiling-check", os.path.join(tmp, "trace")],
+                          capture_output=True, text=True, timeout=300)
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    out = json.loads(lines[-1]) if lines else {"stdout": proc.stdout[-2000:], "stderr": proc.stderr[-2000:]}
+    check(proc.returncode == 0, f"profiling: the trace does not name rbf_gram_kernel and the gram range, its peak is "
+                                f"not torch's, or K1 did not launch: {out}")
+    return out
+
+
+def application_phases(torch):
+    """The bayesopt, bayesopt_loop, design, metrics and structure and
+    checkpoint phases, and K1's shapes on them checked against gram_phase's
+    cases (or held as they launched); returns their results, the launches of
+    each of their paths (counted over the path's own runs only), and the
+    seconds they took together."""
+    t0 = time.perf_counter()
+    bo, post = bayesopt_phase(torch)
+    out = {"bayesopt": bo, "bayesopt_loop": bayesopt_loop_phase(torch), "design": design_phase(torch, post)}
+    out["metrics"] = metrics_phase(torch, post)
+    del post
+    torch.cuda.empty_cache()
+    out["structure"] = structure_phase(torch)
+    out["checkpoint"] = checkpoint_phase(torch)
+    check_gram_coverage(set().union(*(result["rbf_gram_shapes"] for result in out.values())))
+    paths = {"bayesopt": bo["launches"], "bayesopt_loop": out["bayesopt_loop"]["launches"],
+             "design": out["design"]["launches"], "metrics": out["metrics"]["launches"],
+             "kernel_search": out["structure"]["launches"], "checkpoint": out["checkpoint"]["launches"]}
+    seconds = time.perf_counter() - t0
+    print(f"# bayesopt, bayesopt_loop, design, metrics, structure and checkpoint phases: {seconds:.1f} s together; "
+          f"launches by path {paths}", flush=True)
+    return out, paths, seconds
+
+
 def build_kernels():
     """Builds the four kernel sources of the package on ``sys.path`` (one
     nvcc each, all started together) and loads them: (seconds, (gram,
@@ -5968,6 +6892,8 @@ def main() -> int:
     done("fleet")
     variants, variant_paths, variants_s = sparse_variant_phases(torch, it_pathwise)
     done("sparse_variants")
+    apps, app_paths, apps_s = application_phases(torch)
+    done("applications")
     print(f"# seconds by phase group: {phase_s}", flush=True)
 
     paths = {"serving": serving["launches"], "training": training["launches"],
@@ -5979,7 +6905,7 @@ def main() -> int:
              "iterative_serving": iterative_serving["launches"],
              **{name: result["launches"] for name, result in latent.items()},
              **{name: result["launches"] for name, result in structured.items()},
-             **fleet_paths, **variant_paths}
+             **fleet_paths, **variant_paths, **app_paths}
     g, c = gram_rows[0], contract_rows[0]
     gb = next(r for r in gram_rows if r.get("batch") and r["dtype"] == "float32" and r["case"] == "fleet K")
     m9, lr = mvm_rows["timed"][9], lowrank_rows["timed"][IT_PROBES + 1]
@@ -6078,7 +7004,10 @@ def main() -> int:
           f"variants {fleet['exact_variants']['peak_mem_gb']:.3f} GB (their phases {fleet_s:.1f} s), heteroscedastic "
           f"{variants['heteroscedastic']['peak_mem_gb']:.3f} GB, deep {variants['deep']['peak_mem_gb']:.3f} GB, streaming "
           f"{variants['streaming']['peak_mem_gb']:.3f} GB, pathwise {variants['pathwise']['peak_mem_gb']:.3f} GB (their "
-          f"phases {variants_s:.1f} s); "
+          f"phases {variants_s:.1f} s), bayesopt {apps['bayesopt']['peak_mem_gb']:.2f} GB, bayesopt_loop "
+          f"{apps['bayesopt_loop']['peak_mem_gb']:.3f} GB, design {apps['design']['peak_mem_gb']:.2f} GB, metrics "
+          f"{apps['metrics']['peak_mem_gb']:.3f} GB, kernel_search {apps['structure']['peak_mem_gb']:.3f} GB (their "
+          f"phases {apps_s:.1f} s); "
           f"launches count each captured step's recorded launches once per "
           f"replay; total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels_line), flush=True)
@@ -6093,6 +7022,8 @@ if __name__ == "__main__":
         sys.exit(zoo_cpu_reference(sys.argv[2]))
     if sys.argv[1:2] == ["--iterative-cpu-reference"]:
         sys.exit(iterative_cpu_reference(sys.argv[2]))
+    if sys.argv[1:2] == ["--profiling-check"]:
+        sys.exit(profiling_check(sys.argv[2]))
     if sys.argv[1:2] == ["--compare-side"]:
         sys.exit(compare_side(sys.argv[2] if len(sys.argv) > 2 else os.path.dirname(os.path.abspath(__file__))))
     try:

@@ -1,13 +1,13 @@
-"""Training loops (counterpart of ``gptorch_tpu/training``; the checkpoint
-module is not ported yet)."""
+"""Training loops and checkpoints (counterpart of ``gptorch_tpu/training``)."""
 
-from . import fit, lbfgs, natgrad
+from . import checkpoint, fit, lbfgs, natgrad
 from .fit import fit_scan, fit_scipy, fit_torch, make_optimizer
 from .lbfgs import LBFGS
 from .natgrad import fit_svgp_natgrad, make_natgrad_step
 
 __all__ = [
     "LBFGS",
+    "checkpoint",
     "fit",
     "fit_scan",
     "fit_scipy",

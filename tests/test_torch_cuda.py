@@ -1406,3 +1406,128 @@ def test_online_sgpr_step_reuses_its_captured_graph(cuda):
     assert len(fit._GRAPHS[out["cuda"][0]]) == 2 and out["cpu"][0] not in fit._GRAPHS
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-8 * np.abs(b).max())
+
+
+def _held_uniform(monkeypatch, arrays):
+    """sampling.uniform returns ``arrays`` in turn, on the caller's device."""
+    queue = list(arrays)
+    monkeypatch.setattr(sampling, "uniform", lambda generator, shape, like: torch.as_tensor(
+        queue.pop(0), dtype=like.dtype, device=like.device))
+
+
+def _bo_model(device):
+    rng = np.random.RandomState(11)
+    x = rng.rand(30, 2)
+    y = np.sum((x - 0.3) ** 2, axis=1, keepdims=True) + 0.01 * rng.randn(30, 1)
+    return GPR(x, y, kernels.Rbf(2, ARD=True), likelihood=likelihoods.Gaussian(1e-3), fast=False, device=device)
+
+
+def test_suggest_card_matches_cpu(cuda, monkeypatch):
+    """bayesopt.suggest on held candidates (64, 8 refinement steps), float64:
+    the card's point equals the CPU's to 1e-8, and K1 launched for the
+    candidates' cross Gram and every refinement step's."""
+    from gptorch_tpu_torch import bayesopt
+
+    u = np.random.RandomState(12).rand(64, 2)
+    out = {}
+    with _float64():
+        for device in ("cuda", "cpu"):
+            _held_uniform(monkeypatch, [u])
+            model = _bo_model(device)
+            before = gram.rbf_gram.launches
+            out[device] = (bayesopt.suggest(model, [[0, 1], [0, 1]], n_candidates=64, refine_steps=8,
+                                            generator=torch.Generator(device=device)),
+                           gram.rbf_gram.launches - before)
+    assert out["cuda"][1] >= 10 and out["cpu"][1] == 0  # posterior, candidates, 8 steps and the check
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-8)
+
+
+def test_alc_acquisition_card_matches_cpu(cuda):
+    """design.alc_acquisition on the same posterior, float64: the card's
+    scores equal the CPU's (1e-10 of the largest), its three cross Grams on
+    K1."""
+    from gptorch_tpu_torch import design
+
+    rng = np.random.RandomState(13)
+    cand, ref = rng.rand(50, 2), rng.rand(20, 2)
+    out = {}
+    with _float64():
+        for device in ("cuda", "cpu"):
+            post = _bo_model(device).posterior()
+            before = gram.rbf_gram.launches
+            out[device] = (design.alc_acquisition(post, cand, ref).cpu().numpy(), gram.rbf_gram.launches - before)
+    assert out["cuda"][1] == 3 and out["cpu"][1] == 0
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-10 * np.abs(out["cpu"][0]).max())
+
+
+def test_kfold_cv_card_matches_cpu(cuda):
+    """metrics.kfold_cv at k = 3, n = 96, 20 Adam iterations, float64: the
+    card's fold RMSE and NLPD equal the CPU's (1e-8); the fleet's Grams are
+    batched K1 launches."""
+    from gptorch_tpu_torch import metrics
+
+    rng = np.random.RandomState(14)
+    x = rng.randn(96, 3)
+    y = np.sin(x[:, :1]) + 0.1 * rng.randn(96, 1)
+    out = {}
+    with _float64():
+        for device in ("cuda", "cpu"):
+            before = gram.rbf_gram.launches
+            res = metrics.kfold_cv(x, y, lambda: kernels.Rbf(3, ARD=True), k=3, fit_iters=20, device=device)
+            out[device] = (res, gram.rbf_gram.launches - before)
+    assert out["cuda"][1] > 0 and out["cpu"][1] == 0
+    for key in ("fold_rmse", "fold_nlpd"):
+        np.testing.assert_allclose(out["cuda"][0][key], out["cpu"][0][key], rtol=1e-8)
+
+
+def test_search_candidate_card_matches_cpu(cuda):
+    """One kernel_search candidate, Rbf + Linear trained by L-BFGS (10
+    iterations), float64: the card's NLML equals the CPU's (1e-8), its Rbf
+    term on K1; the kernel it starts from is unchanged."""
+    from gptorch_tpu_torch import structure
+
+    rng = np.random.RandomState(15)
+    x = np.linspace(0, 4, 40)[:, None]
+    y = 0.5 * x + np.sin(3 * x) + 0.1 * rng.randn(40, 1)
+    out = {}
+    with _float64():
+        for device in ("cuda", "cpu"):
+            kern = kernels.Rbf(1) + kernels.Linear(1)
+            start = {k: v.detach().clone() for k, v in get_trainable(kern).items()}
+            before = gram.rbf_gram.launches
+            model, nlml = structure._train(x, y, kern, None, method="LBFGS", max_iter=10, learning_rate=None,
+                                           restarts=1, generator=torch.Generator(device=device), jitter_scale=0.5,
+                                           device=device)
+            out[device] = (nlml, gram.rbf_gram.launches - before)
+            assert model.device.type == device
+            assert all(torch.equal(start[k], v) for k, v in get_trainable(kern).items())
+    assert out["cuda"][1] > 0 and out["cpu"][1] == 0
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-8)
+
+
+def test_checkpoint_load_under_a_cached_graph(cuda, tmp_path):
+    """load_trainable into a model whose captured fit_scan graph is cached
+    writes in place: the next fit_scan replays that graph (no new capture)
+    and gives the losses of a fresh model loaded from the same file."""
+    from gptorch_tpu_torch.training import checkpoint
+
+    rng = np.random.RandomState(16)
+    x = rng.randn(200, 3)
+    y = np.sin(x[:, :1]) + 0.1 * rng.randn(200, 1)
+    path = str(tmp_path / "start.npz")
+    with _float64(), settings.override(jitter_policy="fixed"):
+        def build():
+            return GPR(x, y, kernels.Rbf(3, ARD=True), likelihood=likelihoods.Gaussian(0.1), fast=False,
+                       device="cuda")
+
+        model = build()
+        checkpoint.save_trainable(path, model)
+        first = fit.fit_scan(model, "Adam", max_iter=5, learning_rate=0.05)[1].cpu()
+        assert fit.fit_scan.last_run["captured"] and len(fit._GRAPHS[model]) == 1
+        checkpoint.load_trainable(path, model)
+        again = fit.fit_scan(model, "Adam", max_iter=5, learning_rate=0.05)[1].cpu()
+        assert len(fit._GRAPHS[model]) == 1  # replayed, not captured anew
+        fresh = checkpoint.load_trainable(path, build())
+        want = fit.fit_scan(fresh, "Adam", max_iter=5, learning_rate=0.05)[1].cpu()
+    torch.testing.assert_close(again, want, rtol=1e-12, atol=0)
+    torch.testing.assert_close(first, want, rtol=1e-12, atol=0)
