@@ -4,12 +4,12 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --compare-side [CHECKOUT]
 
-The second form runs only the kernel phases (the same list as the first),
-K4 over ranks 9 to 32, and the matrix-free value-and-grad with its stages,
-from the chip_smoke.py and the package of CHECKOUT (a ``git archive`` of
-another commit; this directory by default): one side of a comparison of
-two commits on one card, run in one call as parent, change, change,
-parent.
+The second form runs only this script's kernel phases (the same list as
+the first) on the package of CHECKOUT (a ``git archive`` of another
+commit; this directory by default), then K4 over ranks 9 to 32 and the
+matrix-free value-and-grad with its stages from CHECKOUT's chip_smoke.py:
+one side of a comparison of two commits on one card, run in one call as
+parent, change, change, parent.
 
 1. Builds every hand-written kernel from the sources in the checkout, one
    nvcc per source, all started together.
@@ -17,6 +17,10 @@ parent.
    with its time (CUDA events, warm), the plain version's time and the least
    time the card could take (bytes over 3.35 TB/s or operations over the
    peak rate, whichever is larger).
+   Each K1 case prints two times: "call", a loop of calls from the host
+   (what a caller waits for; a small Gram's is the host's), and "device",
+   the card's time alone (launches captured in one CUDA graph and
+   replayed).
    - K1 ``rbf_gram``: the exact-GP serving and training shapes (d = 8)
      and the sparse paths' (d = 9: Kuu 1024², Kuf 1024 × 4096, Kus
      1024 × 256, ragged 1000 × 4000) in float32 and float64, and its
@@ -654,6 +658,35 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, launches, replays=3):
+    """Milliseconds the card spends on one call of ``fn``: ``launches`` calls
+    captured in one CUDA graph, the graph replayed once warm, then
+    ``replays`` times between two CUDA events.  The host's time to issue a
+    call is left out; :func:`time_ms`'s loop of calls includes it (a small
+    kernel's call reading is the host's)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * launches)
+
+
 def bound_ms(bytes_moved, ops, dtype):
     """The larger of the bytes over the memory rate and the operations over
     the peak rate (``dtype`` names the type), in ms, and which of the two
@@ -900,10 +933,20 @@ def check_gram_coverage(shapes):
     check(not missing, f"rbf_gram shapes not held against the twin: {missing}")
 
 
+def symmetric_gram_checks(torch, k, diagonal, what):
+    """A symmetric Gram ``k`` (one or a batch) from K1: bitwise symmetric,
+    and its diagonal exactly ``diagonal`` (var, plus diag where given: r² =
+    0 there)."""
+    check(torch.equal(k, k.mT), f"rbf_gram {what}: the symmetric Gram is not bitwise symmetric")
+    want = diagonal[..., None].expand(k.shape[:-1])
+    check(torch.equal(k.diagonal(dim1=-2, dim2=-1), want), f"rbf_gram {what}: the diagonal is not var (+ diag)")
+
+
 def gram_batched_phase(torch, gram):
     """K1's batched launch against the twin, float32 and float64, with
     distinct var and diag per member (a kernel that read member 0's scalars
-    would fail), timed beside the twin and its bound; and one launch for
+    would fail), timed beside the twin and its bound (the call from the
+    host and the card's time alone, :func:`device_ms`); and one launch for
     the whole batch."""
     rows = []
     for dtype in (torch.float32, torch.float64):
@@ -921,23 +964,34 @@ def gram_batched_phase(torch, gram):
                 torch.cuda.synchronize()
                 p = gram.rbf_gram_plain(x1, x2, var, diag)
                 err = float(((k - p).abs().amax(dim=(1, 2)) / var).max())
-                del k, p
-                ms = time_ms(lambda: gram.rbf_gram(x1, x2, var=var, diag=diag), 50)
+                del p
+                call = lambda: gram.rbf_gram(x1, x2, var=var, diag=diag)  # noqa: E731
+                if sym:
+                    symmetric_gram_checks(torch, k, var + diag if noise else var, f"{label} {name}")
+                del k
+                ms = time_ms(call, 50)
+                dev_ms = device_ms(call, 50)
                 plain_ms = time_ms(lambda: gram.rbf_gram_plain(x1, x2, var, diag), 20)
             torch.cuda.empty_cache()
             bound, bound_by = gram_bound_ms(n1, n2, d, sym, name, x1.element_size(), batch=b)
             tol = TOL[name] * 1.3
             print(f"# kernel rbf_gram {label:8s} {name} batch {b} x ({n1}, {n2}) d={d}, a var and diag per member: "
-                  f"max|kernel-plain|/var={err:.3e} (tol {tol:.1e}) in {launches} launch, kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})", flush=True)
+                  f"max|kernel-plain|/var={err:.3e} (tol {tol:.1e}) in {launches} launch, call {ms:.4f} ms, "
+                  f"device {dev_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})",
+                  flush=True)
             check(err <= tol, f"rbf_gram {label} {name} batch {b} error {err} > {tol}")
             check(launches == 1, f"rbf_gram {label}: {launches} launches for one batch")
             rows.append({"case": label, "dtype": name, "batch": b, "n1": n1, "n2": n2, "d": d, "max_abs_err": err,
-                         "tol": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by})
+                         "tol": tol, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                         "bound_by": bound_by})
     return rows
 
 
 def gram_phase(torch, gram):
+    """K1 at every GRAM_CASES shape against the twin, float32 and float64,
+    with the call's time from the host, the card's time alone
+    (:func:`device_ms`), the twin's and the bound; then its backward and
+    the batched cases."""
     rows = []
     for dtype in (torch.float32, torch.float64):
         name = dtype_name(dtype)
@@ -953,20 +1007,25 @@ def gram_phase(torch, gram):
                 torch.cuda.synchronize()
                 p = gram.rbf_gram_plain(x1, x2, var, diag)
                 err = float((k - p).abs().max())
-                del k, p
+                del p
+                call = lambda: gram.rbf_gram(x1, x2, var=var, diag=diag)  # noqa: E731
+                if sym:
+                    symmetric_gram_checks(torch, k, var + diag if noise else var, f"{label} {name}")
+                del k
                 big = n1 * n2 >= N * N
-                ms = time_ms(lambda: gram.rbf_gram(x1, x2, var=var, diag=diag), 10 if big else 50)
+                ms = time_ms(call, 10 if big else 50)
+                dev_ms = device_ms(call, 20 if big else 50)
                 plain_ms = time_ms(lambda: gram.rbf_gram_plain(x1, x2, var, diag), 3 if big else 20)
             torch.cuda.empty_cache()
             bound, bound_by = gram_bound_ms(n1, n2, d, sym, name, x1.element_size())
             tol = TOL[name] * 1.3
             row = {
                 "case": label, "dtype": name, "n1": n1, "n2": n2, "d": d,
-                "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+                "max_abs_err": err, "tol": tol, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": bound_by,
             }
             print(f"# kernel rbf_gram {label:8s} {name} ({n1}, {n2}) d={d}: "
-                  f"max|kernel-plain|={err:.3e} (tol {tol:.1e}) kernel {ms:.4f} ms, "
+                  f"max|kernel-plain|={err:.3e} (tol {tol:.1e}) call {ms:.4f} ms, device {dev_ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})", flush=True)
             check(err <= tol, f"rbf_gram {label} {name} ({n1},{n2}) error {err} > {tol}")
             rows.append(row)
@@ -2754,6 +2813,24 @@ def ptxas_report(log, pattern):
                 regs = int(used.group(1))
             out[name] = (regs, stores, loads)
     return out
+
+
+def k1_instance(mangled):
+    """A readable name for a K1 kernel's mangled name: its mapping, type and
+    template arguments (rbf_gram_kernel_tilesIfLi128ELb1ELb0EE ->
+    "tiles float32 128 rows 16-byte stores")."""
+    found = re.search(r"rbf_gram_kernel_([a-z]+)I([fd])((?:L[ib]\d+E)*)E", mangled)
+    if not found:
+        return mangled
+    mapping, t, args = found.groups()
+    values = [int(v) for v in re.findall(r"L[ib](\d+)E", args)]
+    words = [mapping, "float32" if t == "f" else "float64"]
+    if mapping == "tiles":
+        tm, vec, half = values
+        words += [f"{tm} rows", "16-byte stores" if vec else "scalar stores"] + (["mirrored"] if half else [])
+    elif values:
+        words += [f"rows in registers to d = {values[0]}" if values[0] else "rows read per element"]
+    return " ".join(words)
 
 
 def radial_inputs(torch, n, cols, dtype, seed):
@@ -6782,14 +6859,15 @@ def lowrank_rank_sweep(torch, lowrank, ranks=(9, 17, 24, 32)):
 
 
 def compare_side(checkout) -> int:
-    """One side of a comparison of two commits on one card: the kernel
-    phases of :func:`kernel_phases`, K4 over ranks 9 to 32, then the
-    matrix-free value-and-grad (one warm, three timed) and its stages, all
-    from the chip_smoke.py and the package of ``checkout``, a directory
-    holding a copy of the repository (``git archive``), which builds its
-    kernels under its own ``build/``.  Run it for parent, change, change,
+    """One side of a comparison of two commits on one card: this script's
+    kernel phases (:func:`kernel_phases`, so both sides print the same
+    readings, K1's card time included) on the package of ``checkout``, a
+    directory holding a copy of the repository (``git archive``) that builds
+    its kernels under its own ``build/``; then K4 over ranks 9 to 32 and the
+    matrix-free value-and-grad (one warm, three timed) and its stages from
+    that checkout's chip_smoke.py.  Run it for parent, change, change,
     parent in one call, so that every number of the comparison comes from
-    this script."""
+    one card."""
     import importlib
 
     import torch
@@ -6797,6 +6875,7 @@ def compare_side(checkout) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
+    this = sys.modules[__name__]
     checkout = os.path.abspath(checkout)
     os.chdir(checkout)
     sys.path.insert(0, checkout)
@@ -6804,7 +6883,7 @@ def compare_side(checkout) -> int:
     print(f"## {checkout} on {card_line()}", flush=True)
     seconds, ops, _ = build_kernels()
     print(f"## build {seconds:.1f} s", flush=True)
-    kernel_phases(torch, cs, ops)
+    kernel_phases(torch, this, ops)
     lowrank_rank_sweep(torch, ops[3])
     model, _ = cs.iterative_model(cs.IT_N, np.float32)
     cs.iterative_value_and_grad(torch, model)
@@ -6830,6 +6909,10 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"# nvcc {name}: {line.strip()}", flush=True)
+    # every K1 instance: the mapping, its type and (tiles) 16-byte stores and mirroring
+    for kernel, (regs, stores, loads) in sorted(ptxas_report(build_logs.get("rbf_gram", ""), r"rbf_gram_kernel").items()):
+        print(f"# ptxas rbf_gram {k1_instance(kernel)}: {regs} registers, {stores} bytes spill stores, {loads} bytes "
+              f"spill loads", flush=True)
     # K4's instances (type, kind, MAXD, P = 2r rounded up); the matrix-free backward's is float32, rbf, 8, 20
     k4 = ptxas_report(build_logs.get("lowrank_contract", ""), r"lowrank_kernelI")
     for kernel, (regs, stores, loads) in sorted(k4.items()):
@@ -6925,8 +7008,10 @@ def main() -> int:
             "library_ms": None,
             "shape": [g["n1"], g["n2"], D],
             "dtype": g["dtype"],
+            "device_ms": g["device_ms"],
             "batched_shape": [gb["batch"], gb["n1"], gb["n2"], gb["d"]],
             "batched_ms": gb["ms"],
+            "batched_device_ms": gb["device_ms"],
             "batched_plain_ms": gb["plain_ms"],
             "batched_bound_ms": gb["bound_ms"],
             "batched_max_abs_err": gb["max_abs_err"],

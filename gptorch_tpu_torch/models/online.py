@@ -289,6 +289,8 @@ class OnlineSGPR(Predictive):
         return kinv @ self.m_a, kinv - t @ t.T
 
     def _predict(self, x_new, diag=True):
+        ref = self._input_reference()  # any array-like, cast to Z's dtype as in the JAX package
+        x_new = torch.as_tensor(x_new, dtype=ref.dtype, device=ref.device)
         if x_new.ndim == 1:
             x_new = x_new[:, None]
         w, G = self._uncertain_wG()

@@ -17,7 +17,9 @@ likelihood and mean function (:func:`_frozen`), so training the model in
 place afterwards does not change it -- as in the JAX package, where
 training replaces the model's modules.  Its public predict methods follow
 the model's rule (``_coerce_io``): numpy in, numpy out, without autograd;
-tensor in, tensor out, in the caller's grad mode.
+tensor in, tensor out, in the caller's grad mode; and, as the JAX
+package's posteriors do, take any other array-like (a list) and answer
+with tensors (``_accepts_array_like``).
 """
 
 from __future__ import annotations
@@ -114,6 +116,9 @@ def _paths(kernel, mean_function, X, phi, W, coef):
 class Posterior(Predictive):
     """Base: precomputed factors plus frozen copies of the model pieces
     needed to predict.  Subclasses implement ``_predict(x_new, diag)``."""
+
+    # Queries may be any array-like, as the JAX package's posteriors take.
+    _accepts_array_like = True
 
     def __init__(self, kernel, likelihood, mean_function):
         super().__init__()

@@ -199,6 +199,8 @@ class StreamingVFE(Predictive):
         return w, linv.T @ linv - lbinv_linv.T @ lbinv_linv
 
     def _predict(self, x_new, diag=True):
+        ref = self._input_reference()  # any array-like, cast to Z's dtype as in the JAX package
+        x_new = torch.as_tensor(x_new, dtype=ref.dtype, device=ref.device)
         if x_new.ndim == 1:
             x_new = x_new[:, None]
         w, G = self._uncertain_wG()

@@ -42,10 +42,17 @@ def _coerce_io(predict_func):
     argument is one (the pathwise samplers).  A numpy input is cast to the
     dtype and device of ``self._input_reference()`` (the training inputs; a
     sparse posterior's inducing points) and run under ``torch.no_grad()``:
-    its numpy output carries no graph anyway."""
+    its numpy output carries no graph anyway.  Where ``self`` sets
+    ``_accepts_array_like`` (the posteriors, whose JAX counterparts pass a
+    query through ``jnp.asarray`` and answer with JAX arrays), any other
+    array-like (a list) becomes a tensor of that dtype on that device and
+    is answered with tensors."""
 
     @functools.wraps(predict_func)
     def predict(self, input_new, *args, **kwargs):
+        if not isinstance(input_new, (np.ndarray, torch.Tensor)) and getattr(self, "_accepts_array_like", False):
+            ref = self._input_reference()
+            input_new = torch.as_tensor(input_new, dtype=ref.dtype, device=ref.device)
         if not isinstance(input_new, np.ndarray):
             return predict_func(self, input_new, *args, **kwargs)
         ref = self._input_reference()

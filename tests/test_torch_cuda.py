@@ -1531,3 +1531,215 @@ def test_checkpoint_load_under_a_cached_graph(cuda, tmp_path):
         want = fit.fit_scan(fresh, "Adam", max_iter=5, learning_rate=0.05)[1].cpu()
     torch.testing.assert_close(again, want, rtol=1e-12, atol=0)
     torch.testing.assert_close(first, want, rtol=1e-12, atol=0)
+
+
+# -- K1's mappings (ops/gram.py:plan): tiles with 16-byte or scalar stores, -----
+# -- a symmetric Gram mirrored, members packed a warp each, a thread a row ------
+
+_K1_TOL = {torch.float32: 2e-5 * 1.3, torch.float64: 1e-12 * 1.3}  # chip_smoke.py's TOL, x1.3
+
+
+def _k1_inputs(b, n1, n2, d, dtype, seed):
+    """Inputs of ``b`` Grams (b None: one Gram), a var (and a diag) per
+    member."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lead = () if b is None else (b,)
+    x1 = torch.randn(lead + (n1, d), generator=g, device="cuda", dtype=dtype)
+    x2 = None if n2 is None else torch.randn(lead + (n2, d), generator=g, device="cuda", dtype=dtype)
+    var = torch.rand(lead, generator=g, device="cuda", dtype=dtype) + 0.5
+    diag = torch.rand(lead, generator=g, device="cuda", dtype=dtype) * 0.1 + 0.01
+    return x1, x2, var, diag
+
+
+def _k1_mapping(b, n1, n2, dtype):
+    limits = gram._grid_limits(dtype == torch.float64, torch.cuda.current_device())
+    n2_ = n1 if n2 is None else n2
+    return gram.MAPPINGS[gram.plan(b or 1, n1, n2_, n2 is None, 8 if dtype == torch.float64 else 4, limits)[0]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b, n1, n2, mapping", [
+    (None, 130, 1031, "tiles"),        # rows of 1031: not 16-byte aligned in either type
+    (None, 70, 4001, "tiles"),
+    (None, 65, 1030, {torch.float32: "tiles", torch.float64: "tiles_vec"}),  # even n2: aligned in float64 only
+    (None, 129, 1028, "tiles_vec"),
+    (None, 1031, None, "half"),        # symmetric, ragged and misaligned
+    (None, 300, None, "half_vec"),
+    (3, 65, 67, "tiles"),              # members start at misaligned offsets
+    (4, 130, 132, "tiles_vec"),
+    (5, 67, None, "half"),
+    (7, 32, 32, "packed"),             # the Vecchia chunk's members
+    (9, 32, None, "packed"),
+    (6, 5, 7, "packed"),               # members at misaligned offsets, packed
+    (None, 1, 1, "rows"),
+    (11, 32, 1, "rows"),
+    (13, 1, 1, "rows"),
+    (None, 4099, 1, "rows"),
+    (None, 1, None, "rows"),
+    (None, 4, 32768, "columns"),       # a few queries against many points
+    (5, 16, 257, "columns"),
+    (None, 1, 4001, "columns"),
+    (None, 17, 4001, "tiles"),
+])
+def test_k1_mappings_match_plain(cuda, dtype, b, n1, n2, mapping):
+    """Each mapping against the twin at shapes that break 16-byte alignment
+    (rows and members), small members, single columns; one launch each."""
+    x1, x2, var, diag = _k1_inputs(b, n1, n2, 9, dtype, seed=n1 + (n2 or 0))
+    want_map = mapping[dtype] if isinstance(mapping, dict) else mapping
+    assert _k1_mapping(b, n1, n2, dtype) == want_map
+    diag = diag if n2 is None else None
+    before = gram.rbf_gram.launches
+    out = gram.rbf_gram(x1, x2, var=var, diag=diag)
+    assert gram.rbf_gram.launches == before + 1
+    torch.cuda.synchronize()
+    want = gram.rbf_gram_plain(x1, x2, var, diag)
+    scale = var if b is None else var[:, None, None]
+    assert float(((out - want).abs() / scale).max()) <= _K1_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b, n, noise", [(None, 1000, True), (None, 1000, False), (None, 257, True), (3, 200, True),
+                                         (4, 32, True), (None, 20, False)])
+def test_k1_symmetric_is_exact(cuda, dtype, b, n, noise):
+    """A symmetric Gram is bitwise symmetric and its diagonal exactly var
+    (plus diag, added last), in every mapping a symmetric Gram takes."""
+    x1, _, var, diag = _k1_inputs(b, n, None, 8, dtype, seed=n)
+    diag = diag if noise else None
+    out = gram.rbf_gram(x1, var=var, diag=diag)
+    assert torch.equal(out, out.mT)
+    want = (var + diag if noise else var)[..., None].expand(out.shape[:-1])
+    assert torch.equal(out.diagonal(dim1=-2, dim2=-1), want)
+    if noise:  # before the diagonal is added: exactly var
+        bare = gram.rbf_gram(x1, var=var)
+        assert torch.equal(bare.diagonal(dim1=-2, dim2=-1), var[..., None].expand(out.shape[:-1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [0, 1, 8, 9, 33])
+@pytest.mark.parametrize("b, n1, n2", [(None, 150, None), (None, 100, 67), (5, 32, 32), (5, 32, 1), (3, 4, 100)])
+def test_k1_feature_widths(cuda, dtype, d, b, n1, n2):
+    """d = 0 (r² = 0), 1, 8 (one stage), 9 and 33 (stages of 8 and a
+    remainder) in every mapping, against the twin."""
+    x1, x2, var, diag = _k1_inputs(b, n1, n2, d, dtype, seed=d)
+    out = gram.rbf_gram(x1, x2, var=var)
+    torch.cuda.synchronize()
+    scale = var if b is None else var[:, None, None]
+    assert float(((out - gram.rbf_gram_plain(x1, x2, var)).abs() / scale).max()) <= _K1_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b, n1, n2", [(None, 200, None), (None, 200, 130), (3, 32, 32), (3, 32, 1), (2, 8, 300)])
+def test_k1_nan_stays_nan(cuda, dtype, b, n1, n2):
+    """A NaN coordinate gives NaN in its row (and, symmetric, its column,
+    the diagonal too) and nowhere else: the clamp at 0 keeps a NaN a NaN."""
+    x1, x2, var, _ = _k1_inputs(b, n1, n2, 4, dtype, seed=7)
+    x1[..., 3, 2] = float("nan")
+    out = gram.rbf_gram(x1, x2, var=var)
+    want = torch.zeros_like(out, dtype=torch.bool)
+    want[..., 3, :] = True  # the twin zeroes a symmetric Gram's diagonal r², NaN or not: compare with this
+    if x2 is None:
+        want[..., :, 3] = True
+    assert torch.equal(torch.isnan(out), want)
+
+
+@pytest.mark.parametrize("b, n1, n2", [(70000, 2, None), (70000, 1, 1), (70000, 3, 65), (70000, 20, 40)])
+def test_k1_large_batches(cuda, b, n1, n2):
+    """A batch past the old grid's 65535 in every mapping, one launch."""
+    x1, x2, var, diag = _k1_inputs(b, n1, n2, 3, torch.float32, seed=b)
+    diag = diag if n2 is None else None
+    before = gram.rbf_gram.launches
+    out = gram.rbf_gram(x1, x2, var=var, diag=diag)
+    assert gram.rbf_gram.launches == before + 1
+    torch.cuda.synchronize()
+    want = gram.rbf_gram_plain(x1, x2, var, diag)
+    assert float(((out - want).abs() / var[:, None, None]).max()) <= _K1_TOL[torch.float32]
+
+
+def test_k1_rows_past_the_old_limit(cuda):
+    """n1 past the old launch's 65535 · 64 rows (a cross Gram of 64
+    columns): planned and computed; past MAX_ROWS a clear error."""
+    n1 = 65535 * 64 + 100
+    x1, x2, var, _ = _k1_inputs(None, n1, 64, 2, torch.float32, seed=5)
+    out = gram.rbf_gram(x1, x2, var=var)
+    torch.cuda.synchronize()
+    assert float(((out[-1000:] - gram.rbf_gram_plain(x1[-1000:], x2, var)).abs()).max()) <= _K1_TOL[torch.float32]
+    with pytest.raises(ValueError, match="rows exceed"):
+        gram.plan(1, gram.MAX_ROWS + 1, 64, False, 4, gram._grid_limits(False, torch.cuda.current_device()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_captured_equals_eager(cuda, dtype):
+    """K1 calls of each mapping captured in one CUDA graph and replayed equal
+    the eager calls bitwise; a Python-number var inside the capture is
+    filled in the graph, not taken from the eager cache."""
+    shapes = [(None, 300, None), (None, 130, 1031), (6, 32, 32), (6, 32, 1), (3, 100, 64), (None, 4, 3000)]
+    inputs = [_k1_inputs(b, n1, n2, 5, dtype, seed=n1) for b, n1, n2 in shapes]
+
+    def calls():
+        outs = [gram.rbf_gram(x1, x2, var=var, diag=diag if x2 is None else None) for x1, x2, var, diag in inputs]
+        return outs + [gram.rbf_gram(inputs[0][0], var=1.3, diag=0.1)]
+
+    eager = calls()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
+
+
+def test_k1_number_constants_are_per_stream(cuda):
+    """A Python-number var is cached as a device scalar for each stream: a
+    call on a side stream does not read the current stream's tensor, which
+    the allocator could hand to that stream once the cache lets it go."""
+    x1, _, _, _ = _k1_inputs(None, 100, None, 3, torch.float32, seed=3)
+    main = gram.rbf_gram(x1, var=1.7)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = gram.rbf_gram(x1, var=1.7)
+        on_side = gram._scalar(1.7, x1)
+    torch.cuda.current_stream().wait_stream(side)
+    on_main = gram._scalar(1.7, x1)
+    assert on_side.data_ptr() != on_main.data_ptr()
+    assert torch.equal(main, other)
+
+
+def test_k1_one_launch_and_no_side_launches(cuda):
+    """A call makes exactly one device launch (the profiler's kernel list):
+    no fill, stack or zeros beside it, for a tensor var with and without a
+    diagonal and for a Python-number var (cached outside a capture)."""
+    x1, x2, var, diag = _k1_inputs(None, 300, 200, 8, torch.float32, seed=1)
+    gram.rbf_gram(x1, var=2.0)  # the cached constant is made here
+    cases = [lambda: gram.rbf_gram(x1, var=var), lambda: gram.rbf_gram(x1, var=var, diag=diag),
+             lambda: gram.rbf_gram(x1, x2, var=var), lambda: gram.rbf_gram(x1, var=2.0)]
+    for case in cases:
+        torch.cuda.synchronize()
+        before = gram.rbf_gram.launches
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            case()
+            torch.cuda.synchronize()
+        assert gram.rbf_gram.launches == before + 1
+        kernels_run = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)]
+        launched = [k for k in kernels_run if "rbf_gram_kernel" in k]
+        assert len(launched) == 1 and len(kernels_run) == 1, kernels_run
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b, n1, n2", [(None, 1000, None), (None, 4099, 1028), (None, 300, 1031), (4, 130, None)])
+def test_k1_grid_choices_equal(cuda, dtype, b, n1, n2):
+    """The plan's grid and walks of many tiles a block (grids of 1, 7 and 133
+    blocks, stepping across members' ends) give the same Gram bit for bit."""
+    x1, x2, var, diag = _k1_inputs(b, n1, n2, 8, dtype, seed=n1)
+    diag = diag if n2 is None else None
+    want = gram.rbf_gram(x1, x2, var=var, diag=diag)
+    for grid in (1, 7, 133):
+        assert torch.equal(gram._launch(x1, x2, var, diag, grid=grid), want)

@@ -262,3 +262,177 @@ def test_vmap_of_rbf_K_on_the_cpu_takes_the_twin():
 def test_batched_rejects(x1, x2):
     with pytest.raises(ValueError):
         gram.rbf_gram(x1, x2, var=1.0)
+
+
+# -- the launch's plan and arguments (ops/gram.py:plan, _launch) ------------------
+
+#: Resident blocks of each mapping on an H100 (132 SMs; the occupancy API's
+#: figures for float32 and float64) and a smaller card's.
+H100_LIMITS = {4: (528, 528, 528, 528, 660, 1056, 1056), 8: (396, 396, 264, 264, 396, 1056, 1056)}
+SMALL_LIMITS = (8, 8, 8, 8, 16, 16, 16)
+
+
+def _chip_smoke_cases():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return ([(1, n1, n2, sym) for _, n1, n2, sym, _, _ in cs.GRAM_CASES]
+            + [(b, n1, n2, sym) for _, b, n1, n2, sym, _, _ in cs.GRAM_BATCHED_CASES])
+
+
+def _check_plan(b, n1, n2, sym, itemsize, limits):
+    mapping, grid = gram.plan(b, n1, n2, sym, itemsize, limits)
+    vec = n2 % (16 // itemsize) == 0
+    if n2 == 1:
+        assert mapping == gram.ROWS
+        work = -(-b * n1 // gram.THREADS)
+    elif n1 <= gram.PACKED_MAX and n2 <= gram.PACKED_MAX:
+        assert mapping == gram.PACKED
+        work = -(-b * -(-n1 // (32 if b >= 1024 else 8)) // 8)  # a warp a member's 32 or 8 rows
+    elif n1 <= gram.COLUMNS_MAX and not sym:
+        assert mapping == gram.COLUMNS
+        work = -(-b * n2 // gram.THREADS)
+    else:
+        assert mapping == (gram.HALF if sym else gram.TILES) + vec
+        rows = 64 if sym or itemsize == 8 or n1 <= 64 else 128
+        rt, ct = -(-n1 // rows), -(-n2 // 64)
+        work = b * (rt * (rt + 1) // 2 if sym else rt * ct)
+        assert work <= gram.MAX_TILES
+        if not (vec and rows == 128 and work > gram.PERSISTENT_WAVES * limits[mapping]):  # a block a tile
+            assert grid == work
+            return mapping
+    assert 1 <= grid <= limits[mapping] and grid <= work  # a grid past the work or the resident blocks is waste
+    assert grid == min(work, limits[mapping])
+    return mapping
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_every_chip_smoke_shape_gets_a_valid_plan(itemsize):
+    """Every K1 shape that chip_smoke.py holds against the twin gets a plan
+    whose mapping fits the shape (16-byte stores only where every row is
+    aligned, packed members only up to 32 x 32, a thread a row only for
+    one column), whose grid is within the resident blocks where the walk is
+    persistent and one block a tile elsewhere."""
+    cases = _chip_smoke_cases()
+    assert len(cases) > 50
+    seen = set()
+    for b, n1, n2, sym in cases:
+        for limits in (H100_LIMITS[itemsize], SMALL_LIMITS):
+            seen.add(gram.MAPPINGS[_check_plan(b, n1, n2, sym, itemsize, limits)])
+    assert {"tiles_vec", "half_vec", "packed", "rows", "columns"} <= seen
+
+
+@pytest.mark.parametrize("b, n1, n2, sym, mapping", [
+    (1, 4099, 1031, False, "tiles"), (1, 1000, 4001, False, "tiles"), (3, 65, 67, False, "tiles"),
+    (1, 1031, 1031, True, "half"), (4, 130, 132, False, "tiles_vec"), (70000, 2, 2, True, "packed"),
+    (8192, 32, 32, True, "packed"), (8192, 32, 1, False, "rows"), (1, 1, 1, True, "rows"),
+    (1, 32768, 32768, True, "half_vec"), (256, 512, 512, True, "half_vec"), (1, 4194241, 64, False, "tiles_vec"),
+    (1, 4, 32768, False, "columns"), (20, 16, 257, False, "columns"), (1, 17, 32768, False, "tiles_vec"),
+])
+def test_plan_mapping_by_shape(b, n1, n2, sym, mapping):
+    """Misaligned rows (n2 % 4 in float32) and misaligned members take scalar
+    stores; small members are packed; a single column is a thread a row;
+    rows past the old launch's 65535 · 64 plan."""
+    assert gram.MAPPINGS[_check_plan(b, n1, n2, sym, 4, H100_LIMITS[4])] == mapping
+
+
+@pytest.mark.parametrize("b, n1, n2, sym, itemsize, persistent", [
+    (1, 32768, 256, False, 4, False),   # 1024 tiles, under two waves of 528
+    (1, 256, 32768, False, 4, False),
+    (4, 100, 10000, False, 4, False),   # 628 tiles
+    (5, 4096, 1024, False, 4, True),    # 2560 tiles, past four waves
+    (1, 2048, 32768, False, 4, True),
+    (1, 32768, 32768, False, 4, True),
+    (1, 2048, 32768, False, 8, False),  # float64's tiles: a block a tile
+    (1, 4099, 1031, False, 4, False),   # scalar stores
+    (1, 32768, 32768, True, 4, False),  # mirrored
+])
+def test_plan_grid_by_tile_waves(b, n1, n2, sym, itemsize, persistent):
+    """Float32's 16-byte 128-row tiles walk a persistent grid (the resident
+    blocks) only past four waves of them; fewer tiles, and every other
+    tile, take a block a tile."""
+    limits = H100_LIMITS[itemsize]
+    mapping, grid = gram.plan(b, n1, n2, sym, itemsize, limits)
+    assert _check_plan(b, n1, n2, sym, itemsize, limits) in (gram.TILES, gram.TILES_VEC, gram.HALF, gram.HALF_VEC)
+    assert (grid == limits[mapping]) == persistent
+
+
+def test_plan_rejects_past_one_launch():
+    with pytest.raises(ValueError, match="rows exceed"):
+        gram.plan(1, gram.MAX_ROWS + 1, 64, False, 4, H100_LIMITS[4])
+    with pytest.raises(ValueError, match="rows exceed"):
+        gram.plan(1, 64, gram.MAX_ROWS + 1, False, 4, H100_LIMITS[4])
+    with pytest.raises(ValueError, match="tiles"):
+        gram.plan(1, 2**22, 2**22, False, 4, H100_LIMITS[4])
+
+
+@pytest.fixture
+def recorded_launch(monkeypatch):
+    """``_launch`` run on CPU tensors against a recorder in place of the
+    library: the ctypes call's arguments; torch.stack, cat, full and
+    zeros_like made to fail, so a side tensor built per call would raise."""
+    from types import SimpleNamespace
+
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return 0
+
+    lib = SimpleNamespace(rbf_gram_f32=record, rbf_gram_f64=record)
+    monkeypatch.setattr(gram, "_kernel_library", lambda: lib)
+    monkeypatch.setattr(gram, "_grid_limits", lambda f64, device: H100_LIMITS[8 if f64 else 4])
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(cuda_stream=7))
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a side tensor built for the launch")
+
+    for name in ("stack", "cat", "full", "zeros_like"):
+        monkeypatch.setattr(torch, name, forbidden)
+    return calls
+
+
+@pytest.mark.parametrize("sym", [True, False])
+def test_launch_passes_var_and_diag_as_pointers(recorded_launch, sym):
+    """The launch hands the kernel var's and diag's own storage with their
+    strides (0 for one value shared by a batch, None for no diagonal): no
+    (B, 2) array or other tensor besides the output is made per call."""
+    rng = np.random.RandomState(11)
+    x1 = torch.as_tensor(rng.randn(3, 40, 2))
+    x2 = None if sym else torch.as_tensor(rng.randn(3, 36, 2))
+    var = torch.as_tensor(rng.uniform(0.5, 2.0, 3))
+    shared = torch.tensor(0.1, dtype=torch.float64).expand(3)
+    out = gram._launch(x1, x2, var, shared if sym else None)
+    assert out.shape == (3, 40, 40 if sym else 36)
+    (args,) = recorded_launch
+    assert args[0] == x1.data_ptr() and args[1] == (x1 if sym else x2).data_ptr()
+    assert args[2:4] == (var.data_ptr(), 1)
+    assert args[4:6] == ((shared.data_ptr(), 0) if sym else (None, 0))
+    assert args[6] == out.data_ptr() and args[7:12] == (3, 40, 40 if sym else 36, 2, int(sym))
+    assert args[12:14] == gram.plan(3, 40, 40 if sym else 36, sym, 8, H100_LIMITS[8])
+    assert args[14] == 7  # the current stream
+    gram._launch(x1[0], None, torch.tensor(1.3, dtype=torch.float64), None)  # one Gram: 0-d var, stride 0
+    assert recorded_launch[1][2:6] == (recorded_launch[1][2], 0, None, 0)
+    gram._launch(x1, x2, var, shared if sym else None, grid=5)  # a grid in place of the plan's
+    assert recorded_launch[2][12:14] == (args[12], 5)
+
+
+@pytest.mark.parametrize("sym", [True, False])
+def test_eager_function_matches_setup_context_form(twin_launch, sym):
+    """The ctx-form function (calls outside torch.func) and the
+    setup_context form (its vmap rule) give the same output and gradients,
+    with or without a diagonal (float64, on the twin)."""
+    x1, x2, var, diag = _batch(12)
+    for d in ((diag, None) if sym else (None,)):
+        grads = []
+        for fn in (gram._RbfGramEager, gram._RbfGram):
+            leaves = [t.clone().requires_grad_() for t in (x1, var)] + ([] if d is None else [d.clone().requires_grad_()])
+            out = fn.apply(leaves[0], None if sym else x2, leaves[1], leaves[2] if len(leaves) > 2 else None)
+            g = torch.as_tensor(np.random.RandomState(13).randn(*out.shape))
+            grads.append([out.detach()] + list(torch.autograd.grad(out, leaves, g)))
+        for a, b in zip(*grads):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-13, atol=1e-14)

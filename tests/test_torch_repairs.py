@@ -408,3 +408,50 @@ def test_streaming_models_cast_numpy_inputs_like_z(dtype):
         tmean, tvar = model.predict_f(torch.as_tensor(xq, dtype=dtype))
         np.testing.assert_array_equal(mean, tmean.detach().numpy())
     assert online._input_reference() is online.Z_old and stream._input_reference() is stream.Z.raw
+
+
+def test_array_like_queries_match_jax():
+    """ROADMAP 3.1: a Python list as the query of a cached posterior (its
+    predict_f, predict_y, predict_f_batched, predict_log_density), of its
+    for_serving() twin (mean_only too), and of StreamingVFE's and
+    OnlineSGPR's predictions, in both packages (float64, n = 40, d = 2, Rbf):
+    the JAX package answers with arrays, the port with tensors, equal to
+    1e-9.  GPR.predict_f still refuses a list in both."""
+    from gptorch_tpu.models import OnlineSGPR as JaxOnline
+    from gptorch_tpu.models import StreamingVFE as JaxStreaming
+    from gptorch_tpu_torch.models import OnlineSGPR, StreamingVFE
+
+    x, y = _data(n=40)
+    z = x[::5] + 0.05
+    xs = XS[:3].tolist()
+    ys = [[0.1], [-0.2], [0.3]]
+    jm, tm = JaxGPR(x, y, jax_kernels.Rbf(D)), GPR(x, y, kernels.Rbf(D), device="cpu")
+    jp, tp = jm.posterior(), tm.posterior()
+    pairs = [(jp, tp), (jp.for_serving(), tp.for_serving())]
+    js = JaxStreaming(jax_kernels.Rbf(D), z, likelihood=jax_likelihoods.Gaussian(0.1)).update(x, y)
+    ts = StreamingVFE(kernels.Rbf(D), z, likelihood=likelihoods.Gaussian(0.1), device="cpu").update(x, y)
+    jo = JaxOnline(jax_kernels.Rbf(D), z, likelihood=jax_likelihoods.Gaussian(0.1)).step(x, y, fit_iters=0)
+    to = OnlineSGPR(kernels.Rbf(D), z, likelihood=likelihoods.Gaussian(0.1), device="cpu").step(x, y, fit_iters=0)
+    calls = {
+        "predict_f": lambda m: m.predict_f(xs),
+        "predict_f full": lambda m: m.predict_f(xs, diag=False),
+        "predict_y": lambda m: m.predict_y(xs),
+        "predict_f_batched": lambda m: m.predict_f_batched(xs, batch_size=2),
+        "predict_log_density": lambda m: m.predict_log_density(xs, ys),
+    }
+    cases = [(j, t, calls) for j, t in pairs]
+    cases.append((pairs[1][0], pairs[1][1], {"mean_only": lambda m: m.mean_only(xs)}))
+    cases += [(j, t, {k: calls[k] for k in ("predict_f", "predict_f full", "predict_y")}) for j, t in
+              ((js, ts), (jo, to))]
+    for j, t, fns in cases:
+        for name, fn in fns.items():
+            want, got = fn(j), fn(t)
+            want, got = (want, got) if isinstance(got, tuple) else ((want,), (got,))
+            assert all(isinstance(g, torch.Tensor) for g in got), (type(t).__name__, name)
+            for g, w in zip(got, want):
+                assert isinstance(w, jax.Array)
+                np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), rtol=1e-9, atol=1e-12,
+                                           err_msg=f"{type(t).__name__}.{name}")
+    for model in (jm, tm):
+        with pytest.raises((TypeError, AttributeError)):
+            model.predict_f(xs)
