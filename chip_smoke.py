@@ -93,10 +93,11 @@ parent, change, change, parent.
    (Q = 4) at bench.py's n = 32768, d = 8, float32, on the kernel-general
    path, fit_scan L-BFGS (3 iterations; eager, host reads per
    evaluation), posterior().predict_f; the Gram's and the chunked VJP's
-   times and peaks.  Before it, in float64 at n = 4096, the loss, gradient
-   and three L-BFGS iterations on the card, held against the CPU's loss
-   and gradient and its losses at the card's iterates, which a background
-   process of this script computes while the card trains at full n.
+   times and peaks.  Before phase 11, in float64 at n = 4096, the loss,
+   gradient and three L-BFGS iterations on the card, held (after phase
+   15's card work) against the CPU's loss and gradient and its losses at
+   the card's iterates, which a background process of this script computes
+   while the card runs phases 11-15.
 13. Kernel phases of the matrix-free exact GP: K3 ``gram_mvm`` (the five
    kinds in float32 and float64 at n = 4096 and 4097 with k = 1, 9 and
    256) and K4 ``lowrank_contractions`` (the same with r = 9 and 17), each
@@ -292,6 +293,45 @@ parent, change, change, parent.
    path of their own.  K1 shapes whose n grows while a path runs (the loop,
    the believer picks, the design's conditioned posteriors) and those of
    the small float64 checks are held against the twin as they launch.
+36. mcmc_example: examples/hyperparameter_mcmc.py:45-55's model (n = 30,
+   Matern52 with LogNormal(0, 1) priors on the variance and the length
+   scale, Gaussian(0.1), float64), sample_posterior with 2 chains of 300
+   warmup + 300 draws, 16 leapfrogs, under the fixed jitter policy (each
+   transition one captured CUDA graph), held to the JAX test's assertions
+   (accept > 0.6, no divergence, R-hat < 1.1, ESS > 100), then under the
+   default adaptive one (eager: the probe reads the host; cut to 50 + 50);
+   ms a transition, host reads a transition (none in the captured run:
+   checked), accept rate, divergences, R-hat and ESS of the length scale;
+   then predict_mixture over the captured run's 600 draws at 120 points.  No hand kernel runs
+   here (Matern52's Gram is plain torch).
+37. mcmc_nuts: the same model by NUTS (max depth 10, captured under the
+   fixed policy): ms a transition, tree depths, host reads and leapfrogs a
+   transition; held to test_nuts_sampler_matches_hmc's assertions against
+   phase 36's draws.
+38. mcmc_fused: Rbf-ARD (LogNormal(0, 1) priors), d = 8, at n = 4096 on
+   bench.py's data, float32, on the fused path (K1 and K2 in every
+   leapfrog, each chain through the fused loss's vmap rule), 2 chains of
+   24 leapfrogs, captured.  At the model's own start (well conditioned),
+   one chained value-and-grad timed, held to each chain evaluated alone
+   outside vmap (the rule runs the same kernels on the same values:
+   equal to 1e-5, with the two chains 100 times that apart) and to
+   float64 (4·u·κ).  Then the MAP by 100 captured Adam steps, and from it
+   warmup and draws sized to 30 s of sampling (the cut is printed): the
+   launches a transition's graph recorded (K1 and K2 once per chain and
+   leapfrog), accept > 0.6, no divergence, largest R-hat < 1.5 (a chain
+   stranded at long length scales read 1.7e4), and float32 against
+   float64 at the last draws (the gradient's gap relative to its data-fit
+   and log-det halves, which cancel near a mode).  A witness: from the
+   model's own start at seed 0, 6 warmup transitions and a draw on the
+   fused path in float32 and float64 and on the generic path in float32.
+39. mcmc_latent: sample_latent of a Bernoulli LaplaceGP (Rbf, x on a grid
+   over [-2, 2], y = [sin 2x > 0]) at n = 4096, float32, 200 burn + 300
+   draws (captured chunks of 8 shrinks), then predict_latent_mixture at
+   256 points; ms and shrinks a transition beside the bound of reading the
+   prior factor once; the draws' mean held to the Laplace mode (correlation
+   > 0.99, the JAX test's assertion).
+   Phases 36-39 print the seconds they took together; each is a path of
+   its own in the kernels line.
 
 On the card, fit_scan captures a first-order run as a CUDA graph; the
 training, general-training, SVGP and DKL phases check that it did.  Before
@@ -371,7 +411,9 @@ CAPTURE_RTOL, EXACT_CAPTURE_RTOL = 1e-5, 1e-6
 # (the loss and gradient, then the losses at the card's L-BFGS iterates,
 # evaluated on the CPU by a background process of this script: one CPU
 # evaluation there takes 15-40 s, and three L-BFGS iterations take 25 of
-# them).
+# them).  The card's side runs first in the zoo phases and the CPU's is
+# collected beside the iterative check's, so that it overlaps the zoo's
+# and the iterative phases' card work.
 ZOO_LBFGS_ITERS, ZOO_CHECK_N, ZOO_CHECK_ITERS, ZOO_MIXTURES = 3, 4096, 3, 4
 ZOO_PEAK_GB = 40.0
 ZOO_GRAM_CHECK_N = 2048
@@ -607,6 +649,28 @@ KS_N, KS_ITERS, KS_DEFAULT_N, KS_DEFAULT_ITERS, KS_REL_TOL, CK_STEPS = 256, 40, 
 # float32 (the fused training step's reductions may differ in order from
 # run to run), CK_F64_TOL in float64.
 CK_F32_TOL, CK_F64_TOL = 1e-6, 1e-12
+# mcmc: the model of examples/hyperparameter_mcmc.py:45-55 (n = MC_EX_N,
+# Matern52 with LogNormal(0, 1) priors, Gaussian(0.1), float64), MC_CHAINS
+# chains of MC_WARM + MC_DRAWS transitions of MC_LEAPFROG leapfrogs, by
+# HMC captured (the fixed jitter policy) and eagerly (the default adaptive
+# one; cut to MC_EAGER + MC_EAGER transitions: host-bound at 150-220 ms a
+# transition on an H100's host, the full 600 took 91-134 s), then NUTS
+# (max depth MC_NUTS_DEPTH), predict_mixture at MC_EX_QUERIES points; the
+# fused path (Rbf-ARD, d = 8, n = MC_FUSED_N, float32, the JAX default's
+# MC_FUSED_LEAPFROG leapfrogs): the vmap rule against each chain alone to
+# MC_FUSED_RULE_TOL at the model's start, the MAP by MC_FUSED_FIT_STEPS
+# captured Adam steps at MC_FUSED_FIT_LR, from it warmup and draws sized to
+# MC_FUSED_SECONDS of sampling from one timed value-and-grad, the largest
+# R-hat below MC_FUSED_RHAT (a chain stranded at long length scales read
+# 1.7e4 on an H100), and the witness's MC_WITNESS_WARM warmup transitions
+# from the model's start; sample_latent of a Bernoulli LaplaceGP at n =
+# MC_LATENT_N (MC_LATENT_BURN + MC_LATENT_DRAWS) and
+# predict_latent_mixture at MC_LATENT_QUERIES points.
+MC_EX_N, MC_CHAINS, MC_WARM, MC_DRAWS, MC_LEAPFROG, MC_NUTS_DEPTH, MC_EX_QUERIES = 30, 2, 300, 300, 16, 10, 120
+MC_EAGER = 50
+MC_FUSED_N, MC_FUSED_LEAPFROG, MC_FUSED_SECONDS = 4096, 24, 30.0
+MC_FUSED_FIT_STEPS, MC_FUSED_FIT_LR, MC_FUSED_RULE_TOL, MC_FUSED_RHAT, MC_WITNESS_WARM = 100, 0.1, 1e-5, 1.5, 6
+MC_LATENT_N, MC_LATENT_BURN, MC_LATENT_DRAWS, MC_LATENT_QUERIES = 4096, 200, 300, 256
 
 
 def lowrank_tol(name, n):
@@ -1512,19 +1576,7 @@ def full_width_agreement(torch, model):
         results[dtype] = (float(value.detach()), np.concatenate([g.double().cpu().numpy().ravel() for g in grads]))
         del value, grads
         torch.cuda.empty_cache()
-    with torch.no_grad():
-        p = [r.detach().double() for r in raws]
-        xs = gpr_fast._scaled(model.X.double(), p[0]).contiguous()
-        floor = torch.exp(p[2]) + model.fast_jitter + model.fast_rel_jitter * torch.exp(p[1])
-        K = gpr_fast._gram(xs, p[1], "rbf", floor)
-        v = torch.ones(N, 1, dtype=torch.float64, device=K.device)
-        for _ in range(30):
-            v = K @ v
-            lam_max = float(v.norm())
-            v /= lam_max
-        del K
-        kappa = lam_max / float(floor)
-    torch.cuda.empty_cache()
+    kappa = rbf_kappa(torch, model, *raws)
     tol = 4 * F32_UNIT_ROUNDOFF * kappa
     (v32, g32), (v64, g64) = results[torch.float32], results[torch.float64]
     value_rel = abs(v32 - v64) / abs(v64)
@@ -1536,6 +1588,28 @@ def full_width_agreement(torch, model):
     check(grad_rel <= tol, f"f32 vs f64 gradient at n={N}: {grad_rel} > {tol}")
     return {"nlml_f32": v32, "nlml_f64": v64, "value_rel": value_rel, "grad_rel": grad_rel,
             "kappa_bound": kappa, "tol": tol}
+
+
+def rbf_kappa(torch, model, log_ell, log_var, log_noise):
+    """A bound on the condition number of the fused path's noisy Rbf Gram
+    of ``model`` at the given raw values, in float64: λ_max by 30 power
+    iterations over the noise floor (σ_n² + jitter + rel·σ²), which bounds
+    λ_min from below."""
+    from gptorch_tpu_torch.ops import gpr_fast
+
+    with torch.no_grad():
+        p = [r.detach().double() for r in (log_ell, log_var, log_noise)]
+        xs = gpr_fast._scaled(model.X.double(), p[0]).contiguous()
+        floor = torch.exp(p[2]) + model.fast_jitter + model.fast_rel_jitter * torch.exp(p[1])
+        K = gpr_fast._gram(xs, p[1], "rbf", floor)
+        v = torch.ones(K.shape[0], 1, dtype=torch.float64, device=K.device)
+        for _ in range(30):
+            v = K @ v
+            lam_max = float(v.norm())
+            v /= lam_max
+        del K
+    torch.cuda.empty_cache()
+    return lam_max / float(floor)
 
 
 def card_vs_cpu(torch, gram, contract):
@@ -2591,7 +2665,7 @@ def zoo_check_run(torch, model):
 
 
 def zoo_cpu_reference(path):
-    """The CPU side of zoo_training's float64 check at n = 4096: the loss
+    """The CPU side of zoo_training's float64 check at ZOO_CHECK_N: the loss
     and gradient at the start, and the loss at each L-BFGS iterate the card
     reached (read from ``path + ".in"``), written to ``path`` as JSON.  Run
     by a background process of this script (``--zoo-cpu-reference PATH``)
@@ -2677,72 +2751,80 @@ def zoo_stages(torch, model):
     return out
 
 
-def zoo_training_phase(torch, gram, contract):
-    """Pattern discovery at bench.py's scale: GPR(n = 32768, d = 8,
-    float32) with :func:`zoo_kernel` on the kernel-general path, trained by
-    ``fit_scan(method="LBFGS", max_iter=ZOO_LBFGS_ITERS)`` (eager, host
-    reads per evaluation), then ``posterior().predict_f`` on 256 queries;
-    the Gram's and the chunked VJP's times.  First, in float64 at
-    n = 4096, the loss, gradient and ZOO_CHECK_ITERS L-BFGS iterations on
-    the card, held against the CPU's loss and gradient at the start and
-    its losses at the card's iterates, which a background process of this
-    script computes while the card trains at full n."""
-    from gptorch_tpu_torch import settings
-    from gptorch_tpu_torch.training import fit
-
+def start_zoo_check(torch):
+    """The card's side of zoo_training's float64 check at ZOO_CHECK_N (the
+    loss, gradient and ZOO_CHECK_ITERS L-BFGS iterations), then
+    :func:`zoo_cpu_reference` started on its iterates in the background:
+    returns (the card's readings, process, result path, log path)."""
     with default_dtype(torch, torch.float64):
         model, _ = zoo_model(ZOO_CHECK_N, np.float64)
         card = zoo_check_run(torch, model)
         del model
     torch.cuda.empty_cache()
-    proc, path, log = start_zoo_reference(card[3])
-    try:
-        model, xq = zoo_model(N, np.float32)
-        check(model._general_eligible(model.X) and not model._fast_eligible(model.X),
-              "the zoo model is not on the kernel-general path")
-        out = {"n": N, "d": D, "dtype": "float32", "kernel": "Rbf(ARD)*ExpSinSquared(ARD) + SpectralMixture(Q=4)",
-               "iterations": ZOO_LBFGS_ITERS}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        t0 = time.perf_counter()
-        losses = model.fit_scan("LBFGS", max_iter=ZOO_LBFGS_ITERS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        out["launches"] = read_counts()
-        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        out["evaluations"] = list(fit.fit_scan.last_run["evaluations"])
-        out["lbfgs_s"] = wall
-        out["ms_per_evaluation"] = 1e3 * wall / sum(out["evaluations"])
-        out["losses"] = [float(v) for v in losses.cpu()]
-        with settings.override(jitter_policy="fixed"):
-            t0 = time.perf_counter()
-            post = model.posterior()
-            mu, var = post.predict_f(xq[0])
-            out["posterior_predict_s"] = time.perf_counter() - t0
-            del post
-        torch.cuda.empty_cache()
-        print(f"# zoo training n={N} d={D} f32 {out['kernel']} fit_scan LBFGS max_iter={ZOO_LBFGS_ITERS} (eager: "
-              f"host reads per evaluation): {out['lbfgs_s']:.3f} s, evaluations per iteration {out['evaluations']}, "
-              f"{out['ms_per_evaluation']:.1f} ms per evaluation, losses {out['losses']}, peak device memory "
-              f"{out['peak_mem_gb']:.2f} GB (limit {ZOO_PEAK_GB}), launches {out['launches']}; posterior() + "
-              f"predict_f of {Q}: {out['posterior_predict_s']:.3f} s", flush=True)
-        check(all(math.isfinite(v) for v in out["losses"]), "non-finite zoo training loss")
-        check(all(b < a for a, b in zip(out["losses"], out["losses"][1:])), "the zoo L-BFGS losses do not decrease")
-        check(out["peak_mem_gb"] <= ZOO_PEAK_GB, f"zoo training peak {out['peak_mem_gb']} GB > {ZOO_PEAK_GB}")
-        check(out["launches"]["rbf_gram"] > 0, "the zoo training path never launched rbf_gram")
-        check(np.isfinite(mu).all() and np.isfinite(var).all() and mu.shape == (Q, 1), "bad zoo predict_f output")
-        out["stages"] = zoo_stages(torch, model)
-        del model
-        torch.cuda.empty_cache()
+    return (card, *start_zoo_reference(card[3]))
 
+
+def zoo_training_phase(torch, gram, contract):
+    """Pattern discovery at bench.py's scale: GPR(n = 32768, d = 8,
+    float32) with :func:`zoo_kernel` on the kernel-general path, trained by
+    ``fit_scan(method="LBFGS", max_iter=ZOO_LBFGS_ITERS)`` (eager, host
+    reads per evaluation), then ``posterior().predict_f`` on 256 queries;
+    the Gram's and the chunked VJP's times."""
+    from gptorch_tpu_torch import settings
+    from gptorch_tpu_torch.training import fit
+
+    model, xq = zoo_model(N, np.float32)
+    check(model._general_eligible(model.X) and not model._fast_eligible(model.X),
+          "the zoo model is not on the kernel-general path")
+    out = {"n": N, "d": D, "dtype": "float32", "kernel": "Rbf(ARD)*ExpSinSquared(ARD) + SpectralMixture(Q=4)",
+           "iterations": ZOO_LBFGS_ITERS}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = model.fit_scan("LBFGS", max_iter=ZOO_LBFGS_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["launches"] = read_counts()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["evaluations"] = list(fit.fit_scan.last_run["evaluations"])
+    out["lbfgs_s"] = wall
+    out["ms_per_evaluation"] = 1e3 * wall / sum(out["evaluations"])
+    out["losses"] = [float(v) for v in losses.cpu()]
+    with settings.override(jitter_policy="fixed"):
         t0 = time.perf_counter()
+        post = model.posterior()
+        mu, var = post.predict_f(xq[0])
+        out["posterior_predict_s"] = time.perf_counter() - t0
+        del post
+    torch.cuda.empty_cache()
+    print(f"# zoo training n={N} d={D} f32 {out['kernel']} fit_scan LBFGS max_iter={ZOO_LBFGS_ITERS} (eager: "
+          f"host reads per evaluation): {out['lbfgs_s']:.3f} s, evaluations per iteration {out['evaluations']}, "
+          f"{out['ms_per_evaluation']:.1f} ms per evaluation, losses {out['losses']}, peak device memory "
+          f"{out['peak_mem_gb']:.2f} GB (limit {ZOO_PEAK_GB}), launches {out['launches']}; posterior() + "
+          f"predict_f of {Q}: {out['posterior_predict_s']:.3f} s", flush=True)
+    check(all(math.isfinite(v) for v in out["losses"]), "non-finite zoo training loss")
+    check(all(b < a for a, b in zip(out["losses"], out["losses"][1:])), "the zoo L-BFGS losses do not decrease")
+    check(out["peak_mem_gb"] <= ZOO_PEAK_GB, f"zoo training peak {out['peak_mem_gb']} GB > {ZOO_PEAK_GB}")
+    check(out["launches"]["rbf_gram"] > 0, "the zoo training path never launched rbf_gram")
+    check(np.isfinite(mu).all() and np.isfinite(var).all() and mu.shape == (Q, 1), "bad zoo predict_f output")
+    out["stages"] = zoo_stages(torch, model)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_card_vs_cpu(zoo_check):
+    """zoo_training's float64 check: the card's readings from
+    :func:`start_zoo_check` against its background process's, to
+    F64_REL_TOL."""
+    card, proc, path, log = zoo_check
+    t0 = time.perf_counter()
+    try:
         code = proc.wait(timeout=600)
-        out["cpu_reference_wait_s"] = time.perf_counter() - t0
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        stop_process(proc)
+    waited = time.perf_counter() - t0
     if code != 0:
         with open(log) as f:
             print(f.read(), file=sys.stderr)
@@ -2752,12 +2834,12 @@ def zoo_training_phase(torch, gram, contract):
     value_rel = abs(card[0] - ref["loss"]) / abs(ref["loss"])
     grad_rel = float(np.abs(card[1] - np.asarray(ref["grad"])).max() / np.abs(ref["grad"]).max())
     iter_rel = max(abs(a - b) / abs(b) for a, b in zip(card[2], ref["losses"]))
-    out["card_vs_cpu"] = {"value_rel": value_rel, "grad_rel": grad_rel, "lbfgs_losses_rel": iter_rel,
-                          "card_losses": card[2], "cpu_losses": ref["losses"], "tol": F64_REL_TOL}
+    out = {"value_rel": value_rel, "grad_rel": grad_rel, "lbfgs_losses_rel": iter_rel, "card_losses": card[2],
+           "cpu_losses": ref["losses"], "tol": F64_REL_TOL, "cpu_reference_wait_s": waited}
     print(f"# zoo f64 card vs CPU n={ZOO_CHECK_N}: loss rel {value_rel:.3e}, gradient rel {grad_rel:.3e} at the "
           f"start; the losses after {ZOO_CHECK_ITERS} L-BFGS iterations on the card against the CPU's at the same "
           f"iterates rel {iter_rel:.3e} (tol {F64_REL_TOL}; card {card[2]}, CPU {ref['losses']}); waited "
-          f"{out['cpu_reference_wait_s']:.1f} s for the CPU", flush=True)
+          f"{waited:.1f} s for the CPU after the iterative phases", flush=True)
     check(max(value_rel, grad_rel, iter_rel) <= F64_REL_TOL, "zoo card vs CPU disagree")
     return out
 
@@ -6818,6 +6900,432 @@ def application_phases(torch):
     return out, paths, seconds
 
 
+@contextlib.contextmanager
+def host_reads(torch):
+    """Counts, in the one-element list it yields, the reads of card tensors
+    from the host made inside the block (item, tolist, cpu, numpy, bool,
+    float, int)."""
+    count, names = [0], ("item", "tolist", "cpu", "numpy", "__bool__", "__float__", "__int__")
+    saved = {name: getattr(torch.Tensor, name) for name in names}
+
+    def wrap(fn):
+        def counted_read(self, *args, **kwargs):
+            if self.is_cuda:
+                count[0] += 1
+            return fn(self, *args, **kwargs)
+
+        return counted_read
+
+    for name, fn in saved.items():
+        setattr(torch.Tensor, name, wrap(fn))
+    try:
+        yield count
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.Tensor, name, fn)
+
+
+def mcmc_example_model(torch, device="cuda"):
+    """examples/hyperparameter_mcmc.py:45-55's model, in the default dtype."""
+    from gptorch_tpu_torch import kernels, likelihoods, priors
+    from gptorch_tpu_torch.models import GPR
+    from gptorch_tpu_torch.param import positive_param
+
+    rng = np.random.RandomState(0)
+    x = np.sort(rng.uniform(-3, 3, MC_EX_N))[:, None]
+    y = np.sin(2.0 * x) + 0.25 * rng.randn(MC_EX_N, 1)
+    kernel = kernels.Matern52(1, variance=1.0, length_scales=1.0)
+    kernel.variance = positive_param(1.0, prior=priors.LogNormal(0.0, 1.0))
+    kernel.length_scales = positive_param(1.0, prior=priors.LogNormal(0.0, 1.0))
+    return GPR(x, y, kernel, likelihood=likelihoods.Gaussian(variance=0.1), device=device)
+
+
+def timed_chains(torch, model, launches, **kw):
+    """sample_posterior on ``model`` (MC_CHAINS chains, generator seeded 0 on
+    the card), inside a counted block plus the replays' launches: (samples,
+    result, reading) with the seconds, ms per transition, host reads per
+    transition, whether it captured, and leapfrogs (batched over the
+    chains) per transition."""
+    from gptorch_tpu_torch import mcmc
+
+    warm, draws = kw.setdefault("num_warmup", MC_WARM), kw.setdefault("num_samples", MC_DRAWS)
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    with host_reads(torch) as reads, counted(launches):
+        t0 = time.perf_counter()
+        samples, res = mcmc.sample_posterior(model, generator, num_chains=MC_CHAINS, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    runner = mcmc.sample_posterior.last_run
+    merge_counts(launches, runner.replayed_launches())
+    transitions = warm + draws
+    leapfrogs = sum(n * (key[1] if key[0] in ("hmc", "leaves") else 0) for key, n in runner.calls.items())
+    reading = {"seconds": seconds, "ms_per_transition": 1e3 * seconds / transitions, "captured": runner.capture,
+               "host_reads_per_transition": reads[0] / transitions, "host_reads": reads[0],
+               "sampler_reads_per_transition": runner.reads / transitions,
+               "leapfrogs_per_transition": leapfrogs / transitions, "graphs": len(runner.launches),
+               "accept": float(res.accept_prob.mean()), "divergences": int(res.divergent.sum())}
+    return samples, res, reading, runner
+
+
+def chain_diagnostics(samples, name):
+    from gptorch_tpu_torch import mcmc
+
+    s = samples[name]
+    return {"rhat": float(mcmc.potential_scale_reduction(s).max()), "ess": float(mcmc.effective_sample_size(s).min()),
+            "mean": float(s.mean()), "sd": float(s.std())}
+
+
+def mcmc_example_phase(torch):
+    """mcmc_example and mcmc_nuts; see the module docstring, phase 36."""
+    from gptorch_tpu_torch import mcmc, settings
+
+    out = {"example": {"launches": {}, "runs": {}}, "nuts": {"launches": {}}}
+    ex = out["example"]
+    with default_dtype(torch, torch.float64):
+        model = mcmc_example_model(torch)
+        for policy in ("fixed", "adaptive"):
+            size = {} if policy == "fixed" else {"num_warmup": MC_EAGER, "num_samples": MC_EAGER}
+            with settings.override(jitter_policy=policy):
+                samples, res, r, runner = timed_chains(torch, model, ex["launches"], num_leapfrog=MC_LEAPFROG, **size)
+            r.update(chain_diagnostics(samples, "kernel.length_scales"))
+            ex["runs"][policy] = r
+            check(r["captured"] == (policy == "fixed"), f"mcmc_example {policy}: captured {r['captured']}")
+            check(r["accept"] > 0.6 and r["divergences"] == 0, f"mcmc_example {policy}: {r}")
+            if policy == "fixed":  # the full run: the JAX test's assertions, and no host read while it samples
+                hmc_samples = samples
+                check(r["host_reads"] == 0, f"mcmc_example captured: {r['host_reads']} host reads during sampling")
+                check(r["rhat"] < 1.1 and r["ess"] > 100, f"mcmc_example fails the JAX test's assertions: {r}")
+            warm, draws = size.get("num_warmup", MC_WARM), size.get("num_samples", MC_DRAWS)
+            print(f"# mcmc_example {policy} policy ({'captured' if r['captured'] else 'eager'}; n={MC_EX_N}, "
+                  f"Matern52, float64, {MC_CHAINS} chains x {warm} + {draws}, {MC_LEAPFROG} leapfrogs) on "
+                  f"{card_line()}: {r['ms_per_transition']:.3f} ms a transition, {r['seconds']:.2f} s in all, "
+                  f"{r['host_reads_per_transition']:.2f} host reads a transition ({r['graphs']} graphs); accept "
+                  f"{r['accept']:.3f}, divergences {r['divergences']}, length scale {r['mean']:.3f} +- {r['sd']:.3f}, "
+                  f"R-hat {r['rhat']:.4f}, ESS {r['ess']:.1f}", flush=True)
+        xq = np.linspace(-4, 4, MC_EX_QUERIES)[:, None]
+        with counted(ex["launches"]):
+            mean, var = mcmc.predict_mixture(model, hmc_samples, xq)
+            ex["predict_mixture_ms"] = time_ms(lambda: mcmc.predict_mixture(model, hmc_samples, xq), 3)
+        point_mean, _ = model.predict_y(xq)
+        check(bool(torch.isfinite(mean).all()) and bool((var > 1e-4).all()), "predict_mixture: bad moments")
+        check(float((mean - torch.as_tensor(point_mean, device="cuda")).abs().max()) < 0.5,
+              "predict_mixture: the mixture mean is far from the point prediction")
+        print(f"# mcmc_example predict_mixture over {MC_CHAINS * MC_DRAWS} draws at {MC_EX_QUERIES} points: "
+              f"{ex['predict_mixture_ms']:.3f} ms", flush=True)
+
+        nu = out["nuts"]
+        with settings.override(jitter_policy="fixed"):
+            samples, res, r, runner = timed_chains(torch, model, nu["launches"], sampler="nuts",
+                                                   max_depth=MC_NUTS_DEPTH)
+        depth = res.tree_depth.double()
+        r.update(depth_mean=float(depth.mean()), depth_max=int(depth.max()))
+        nu["run"] = r
+        check(r["captured"], "mcmc_nuts ran eagerly")
+        check(r["divergences"] == 0 and r["accept"] > 0.6, f"mcmc_nuts: {r}")
+        for name in samples:
+            a, b = samples[name].ravel(), hmc_samples[name].ravel()
+            check(abs(float(a.mean() - b.mean())) < max(float(a.std()), float(b.std())),
+                  f"mcmc_nuts: {name} mean {float(a.mean())} against HMC's {float(b.mean())}")
+            check(float(mcmc.potential_scale_reduction(samples[name]).max()) < 1.1, f"mcmc_nuts: {name} R-hat")
+        print(f"# mcmc_nuts (captured, fixed policy, max depth {MC_NUTS_DEPTH}) on {card_line()}: "
+              f"{r['ms_per_transition']:.3f} ms a transition, {r['seconds']:.2f} s in all, tree depth mean "
+              f"{r['depth_mean']:.2f} max {r['depth_max']}, {r['host_reads_per_transition']:.2f} host reads a "
+              f"transition, {r['leapfrogs_per_transition']:.2f} leapfrogs a transition ({r['graphs']} graphs); "
+              f"accept {r['accept']:.3f}, divergences {r['divergences']}", flush=True)
+    return out
+
+
+def fused_mcmc_model(torch, dtype, fast=True):
+    """Rbf-ARD with LogNormal(0, 1) priors on bench.py's data at n =
+    MC_FUSED_N, d = 8, the float32 fused path's relative jitter in either
+    type: the fused path (``fast=False``: the generic one)."""
+    from gptorch_tpu_torch import kernels, likelihoods, priors
+    from gptorch_tpu_torch.models import GPR
+    from gptorch_tpu_torch.param import positive_param
+
+    x, y, _ = make_data(MC_FUSED_N, D, dtype, seed=37)
+    with default_dtype(torch, torch.float32 if dtype == np.float32 else torch.float64):
+        kernel = kernels.Rbf(D, ARD=True)
+        kernel.variance = positive_param(1.0, prior=priors.LogNormal(0.0, 1.0))
+        kernel.length_scales = positive_param(np.ones(D), prior=priors.LogNormal(0.0, 1.0))
+        return GPR(x, y, kernel, likelihood=likelihoods.Gaussian(0.1), fast=fast, fast_rel_jitter=1e-6,
+                   device="cuda")
+
+
+def chained_value_and_grad(model):
+    """The chains' log posterior and its gradient, as sample_posterior
+    evaluates them (value_and_grad of a (chains, dim) tensor), the same for
+    one chain alone outside ``torch.func`` (the fused losses' eager form),
+    and the model's flat raw values."""
+    import torch
+
+    from gptorch_tpu_torch import mcmc
+    from gptorch_tpu_torch.module import get_trainable
+
+    q0, unravel = mcmc._ravel(get_trainable(model), model.device)
+    logpi = mcmc.log_posterior_fn(model)
+
+    def alone(q):
+        with torch.enable_grad():
+            q = q.detach().requires_grad_(True)
+            logp = logpi(unravel(q))
+            (grad,) = torch.autograd.grad(logp, q)
+        return logp.detach(), grad
+
+    return mcmc._batched_value_and_grad(lambda q: logpi(unravel(q))), alone, q0
+
+
+def relative_gaps(a, b):
+    """(the largest relative gap of the log densities, the largest gap of
+    the gradients relative to the reference's largest entry, per chain)
+    between ``a`` and the reference ``b``, each (log densities, gradients)."""
+    (lp, g), (lp_ref, g_ref) = a, b
+    value = float(((lp.double() - lp_ref.double()).abs() / lp_ref.double().abs()).max())
+    grad = float(((g.double() - g_ref.double()).abs().amax(-1) / g_ref.double().abs().amax(-1)).max())
+    return value, grad
+
+
+def fused_term_scale(torch, model, q):
+    """Per chain of the raw values ``q`` (chains, dim: the D log length
+    scales, log variance, log noise), the largest over coordinates of
+    |∂ data fit| + |∂ log det| of the fused NLML, in float64 by plain torch:
+    the two halves of the gradient, which cancel near a mode while
+    float32's error stays at their size."""
+    X, Y = model.X.double(), model.Y.double()
+    out = []
+    for row in q.double():
+        raw = row.detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            xs = X / torch.exp(raw[:D])
+            sq = torch.sum(xs * xs, dim=1)
+            r2 = torch.clamp(sq[:, None] + sq[None, :] - 2.0 * xs @ xs.T, min=0.0)
+            diag = torch.exp(raw[D + 1]) + model.fast_jitter + model.fast_rel_jitter * torch.exp(raw[D])
+            K = torch.exp(raw[D]) * torch.exp(-0.5 * r2) + diag * torch.eye(X.shape[0], dtype=X.dtype, device=X.device)
+            L = torch.linalg.cholesky(K)
+            fit = 0.5 * torch.sum(torch.linalg.solve_triangular(L, Y, upper=False) ** 2)
+            logdet = Y.shape[1] * torch.sum(torch.log(torch.diagonal(L)))
+            g_fit = torch.autograd.grad(fit, raw, retain_graph=True)[0]
+            g_det = torch.autograd.grad(logdet, raw)[0]
+        out.append(float((g_fit.abs() + g_det.abs()).max()))
+        del K, L, r2
+    torch.cuda.empty_cache()
+    return out
+
+
+def fused_f32_vs_f64(torch, vg, vg64, model64, q):
+    """float32's chained value-and-grad against float64's at the raw values
+    ``q`` (chains, dim): the log densities' largest relative gap, and the
+    gradients' largest gap relative to :func:`fused_term_scale` (and, as a
+    reading, to the gradient's own largest entry), each against 4·u·κ at the
+    worst chain."""
+    (lp, g), (lp64, g64) = vg(q), vg64(q.double())
+    value = float(((lp.double() - lp64).abs() / lp64.abs()).max())
+    gap = (g.double() - g64).abs().amax(-1)
+    scale = torch.as_tensor(fused_term_scale(torch, model64, q), dtype=torch.float64, device=gap.device)
+    kappa = max(rbf_kappa(torch, model64, row[:D], row[D], row[D + 1]) for row in q.double())
+    return {"value_rel": value, "grad_rel": float((gap / scale).max()),
+            "grad_rel_own": float((gap / g64.abs().amax(-1)).max()), "term_scale": scale.tolist(),
+            "kappa_bound": kappa, "tol": 4 * F32_UNIT_ROUNDOFF * kappa}
+
+
+def f32_vs_f64_text(f):
+    return (f"log density rel {f['value_rel']:.3e}, gradient {f['grad_rel']:.3e} of the largest |d fit| + |d logdet| "
+            f"({f['grad_rel_own']:.3e} of its own largest entry) (kappa <= {f['kappa_bound']:.1f}, tol 4*u*kappa = "
+            f"{f['tol']:.3e})")
+
+
+def f32_vs_f64_ok(f):
+    return f["tol"] < 1 and max(f["value_rel"], f["grad_rel"]) <= f["tol"]
+
+
+def fused_witness(torch):
+    """From the model's own start and the JAX default first step, the
+    chains after MC_WITNESS_WARM warmup transitions and one draw at the
+    same seed: the fused path in float32 and float64, and the generic path
+    (``fast=False``, the fixed jitter policy so that it captures) in
+    float32; each chain's largest raw log length scale and adapted step."""
+    from gptorch_tpu_torch import mcmc, settings
+
+    out = {}
+    for name, dtype, fast in (("fused f32", np.float32, True), ("generic f32", np.float32, False),
+                              ("fused f64", np.float64, True)):
+        model = fused_mcmc_model(torch, dtype, fast)
+        generator = torch.Generator(device="cuda").manual_seed(0)
+        with settings.override(jitter_policy="fixed"):
+            t0 = time.perf_counter()
+            _, res = mcmc.sample_posterior(model, generator, num_warmup=MC_WITNESS_WARM, num_samples=1,
+                                           num_chains=MC_CHAINS, num_leapfrog=MC_FUSED_LEAPFROG)
+            torch.cuda.synchronize()
+        last = res.samples[:, -1].double()
+        out[name] = {"max_raw_log_ell": [float(v) for v in last[:, :D].amax(-1)],
+                     "step_size": [float(v) for v in res.step_size], "seconds": time.perf_counter() - t0,
+                     "captured": mcmc.sample_posterior.last_run.capture}
+        del model, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def mcmc_fused_phase(torch):
+    """mcmc_fused; see the module docstring, phase 38."""
+    from gptorch_tpu_torch import mcmc
+
+    out = {"launches": {}, "n": MC_FUSED_N, "d": D, "dtype": "float32", "leapfrogs": MC_FUSED_LEAPFROG}
+    model = fused_mcmc_model(torch, np.float32)
+    check(model._fast_eligible(model.X) and not model._reads_jitter_policy(), "mcmc_fused is not on the fused path")
+    vg, alone, q0 = chained_value_and_grad(model)
+    # two chains at the model's own start, well conditioned: chain 0 there, chain 1 0.1·N(0, 1) from it
+    offsets = torch.as_tensor(np.random.RandomState(1).randn(MC_CHAINS, q0.shape[0]), dtype=q0.dtype, device="cuda")
+    offsets[0] = 0.0
+    q = q0[None] + 0.1 * offsets
+    with counted(out["launches"]):
+        got = vg(q)
+        vg_launches = read_counts()
+        out["value_and_grad_ms"] = time_ms(lambda: vg(q), 3)
+    check(vg_launches["rbf_gram"] == MC_CHAINS and vg_launches["radial_contractions"] == MC_CHAINS,
+          f"mcmc_fused: one chained value-and-grad launched {vg_launches}, not K1 and K2 once per chain")
+    # the vmap rule against each chain alone (the eager form, no vmap): the same kernels on the same values
+    ref = [alone(row) for row in q]
+    rule = relative_gaps(got, (torch.stack([r[0] for r in ref]), torch.stack([r[1] for r in ref])))
+    chains_apart = relative_gaps((got[0][:1], got[1][:1]), (got[0][1:], got[1][1:]))
+    model64 = fused_mcmc_model(torch, np.float64)
+    vg64, _, _ = chained_value_and_grad(model64)
+    out["rule"] = {"value_rel": rule[0], "grad_rel": rule[1], "tol": MC_FUSED_RULE_TOL,
+                   "chains_apart": chains_apart, "f32_vs_f64": fused_f32_vs_f64(torch, vg, vg64, model64, q)}
+    f = out["rule"]["f32_vs_f64"]
+    print(f"# mcmc_fused at the model's start (chain 0 there, chain 1 0.1 N(0, 1) from it) on {card_line()}: one "
+          f"chained value-and-grad {out['value_and_grad_ms']:.3f} ms; the vmap rule against each chain alone: log "
+          f"density rel {rule[0]:.3e}, gradient {rule[1]:.3e} (tol {MC_FUSED_RULE_TOL}; the two chains differ by "
+          f"{chains_apart[0]:.3e} and {chains_apart[1]:.3e}); f32 vs f64 {f32_vs_f64_text(f)}", flush=True)
+    check(max(rule) <= MC_FUSED_RULE_TOL and min(chains_apart) > 100 * MC_FUSED_RULE_TOL,
+          f"mcmc_fused: the vmap rule disagrees with each chain alone: {out['rule']}")
+    check(f32_vs_f64_ok(f), f"mcmc_fused f32 vs f64 at the model's start: {f}")
+    # the chains start from the MAP
+    t0 = time.perf_counter()
+    fit_losses = model.fit_scan("Adam", max_iter=MC_FUSED_FIT_STEPS, learning_rate=MC_FUSED_FIT_LR).cpu()
+    out["fit"] = {"seconds": time.perf_counter() - t0,
+                  "losses": [float(fit_losses[i]) for i in (0, MC_FUSED_FIT_STEPS // 2, -1)]}
+    check(bool(torch.isfinite(fit_losses).all()) and out["fit"]["losses"][-1] < out["fit"]["losses"][0],
+          f"mcmc_fused: the MAP fit did not descend: {out['fit']}")
+    # warmup and draws sized to MC_FUSED_SECONDS of sampling at the eager value-and-grad's rate (the JAX default
+    # is 500 + 500; a captured transition takes about half that)
+    transitions = max(8, int(1e3 * MC_FUSED_SECONDS / (out["value_and_grad_ms"] * MC_FUSED_LEAPFROG)))
+    warm = draws = transitions // 2
+    out.update(warmup=warm, draws=draws)
+    torch.cuda.reset_peak_memory_stats()
+    samples, res, r, runner = timed_chains(torch, model, out["launches"], num_warmup=warm, num_samples=draws,
+                                           num_leapfrog=MC_FUSED_LEAPFROG)
+    out["run"] = r
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # one graph a transition (warmup's and the draws'), each with K1 and K2 once per chain and leapfrog
+    want = {"rbf_gram": MC_CHAINS * MC_FUSED_LEAPFROG, "radial_contractions": MC_CHAINS * MC_FUSED_LEAPFROG}
+    per = {key[-2:]: {k: v[k] for k in want} for key, v in runner.launches.items()}
+    out["launches_per_transition"] = want
+    r["rhat_max"] = max(float(mcmc.potential_scale_reduction(v.reshape(v.shape[:2] + (-1,))).max())
+                        for v in samples.values())
+    r["max_raw_log_ell"] = float(res.samples[..., :D].max())
+    # float32 against float64 at the last draw of each chain, 4·u·κ
+    out["f32_vs_f64"] = f = fused_f32_vs_f64(torch, vg, vg64, model64, res.samples[:, -1].contiguous())
+    del model64, vg64
+    torch.cuda.empty_cache()
+    print(f"# mcmc_fused (Rbf-ARD d={D}, n={MC_FUSED_N}, float32, fused path, captured, {MC_CHAINS} chains from the "
+          f"MAP: {MC_FUSED_FIT_STEPS} captured Adam steps at lr {MC_FUSED_FIT_LR}, losses {out['fit']['losses']} in "
+          f"{out['fit']['seconds']:.2f} s; the JAX default 500 + 500 at {MC_FUSED_LEAPFROG} leapfrogs cut to {warm} + "
+          f"{draws} for {MC_FUSED_SECONDS:.0f} s) on {card_line()}: {r['ms_per_transition']:.2f} ms a transition, "
+          f"{r['seconds']:.2f} s in all, {r['host_reads_per_transition']:.3f} host reads a transition, launches a transition's graph recorded "
+          f"{per}; accept {r['accept']:.3f}, divergences {r['divergences']}, largest R-hat {r['rhat_max']:.4f} (limit "
+          f"{MC_FUSED_RHAT}), largest raw log length scale {r['max_raw_log_ell']:.3f}; peak {out['peak_mem_gb']:.2f} "
+          f"GB; f32 vs f64 at the last draw: {f32_vs_f64_text(f)}; launches {out['launches']}", flush=True)
+    out["witness"] = w = fused_witness(torch)
+    print(f"# mcmc_fused witness (from the model's start, first step 0.1, {MC_WITNESS_WARM} warmup transitions and "
+          f"one draw, seed 0, n={MC_FUSED_N}, fixed jitter policy) on {card_line()}: "
+          + "; ".join(f"{k}: largest raw log length scale by chain {v['max_raw_log_ell']}, adapted step "
+                      f"{v['step_size']}, captured {v['captured']}, {v['seconds']:.1f} s" for k, v in w.items()),
+          flush=True)
+    check(r["captured"], "mcmc_fused ran eagerly")
+    check(len(per) == 2 and all(v == want for v in per.values()),
+          f"mcmc_fused: the transitions' graphs recorded {per} launches, not K1 and K2 on every leapfrog ({want})")
+    check(all(bool(torch.isfinite(v).all()) for v in samples.values()), "mcmc_fused: non-finite draws")
+    check(r["accept"] > 0.6 and r["divergences"] == 0 and r["rhat_max"] < MC_FUSED_RHAT,
+          f"mcmc_fused: the chains from the MAP are not healthy: {r}")
+    check(f32_vs_f64_ok(f), f"mcmc_fused f32 vs f64 at the last draw: {f}")
+    check(all(math.isfinite(x) for v in w.values() for x in v["max_raw_log_ell"] + v["step_size"]),
+          "mcmc_fused witness: non-finite chains")
+    return out
+
+
+def mcmc_latent_phase(torch):
+    """mcmc_latent; see the module docstring, phase 39."""
+    from gptorch_tpu_torch import kernels, likelihoods, mcmc
+    from gptorch_tpu_torch.models import LaplaceGP
+
+    out = {"launches": {}, "n": MC_LATENT_N, "dtype": "float32"}
+    x = np.linspace(-2, 2, MC_LATENT_N)[:, None].astype(np.float32)
+    y = (np.sin(2 * x) > 0).astype(np.float32)
+    with default_dtype(torch, torch.float32):
+        model = LaplaceGP(x, y, kernels.Rbf(1), likelihoods.Bernoulli(), device="cuda")
+    generator = torch.Generator(device="cuda").manual_seed(3)
+    transitions = MC_LATENT_BURN + MC_LATENT_DRAWS
+    xq = np.linspace(-2, 2, MC_LATENT_QUERIES)[:, None].astype(np.float32)
+    torch.cuda.synchronize()
+    with host_reads(torch) as reads, counted(out["launches"]):
+        t0 = time.perf_counter()
+        chol = mcmc.latent_prior_chol(model)
+        torch.cuda.synchronize()
+        out["chol_ms"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        draws = mcmc.sample_latent(model, generator, num_samples=MC_LATENT_DRAWS, num_burn=MC_LATENT_BURN, chol=chol)
+        torch.cuda.synchronize()
+        out["sample_seconds"] = time.perf_counter() - t0
+        mean, var = mcmc.predict_latent_mixture(model, draws, xq, chol=chol)
+        out["predict_ms"] = time_ms(lambda: mcmc.predict_latent_mixture(model, draws, xq, chol=chol), 3)
+    runner = mcmc.elliptical_slice.last_run
+    merge_counts(out["launches"], runner.replayed_launches())
+    counts = runner.shrinks.double()
+    out.update(ms_per_transition=1e3 * out["sample_seconds"] / transitions, captured=runner.capture,
+               shrinks_mean=float(counts.mean()), shrinks_max=int(counts.max()),
+               host_reads_per_transition=reads[0] / transitions,
+               bound_ms=1e3 * MC_LATENT_N * MC_LATENT_N * 4 / HBM_BYTES_PER_S)
+    check(runner.capture, "mcmc_latent ran eagerly")
+    check(bool(torch.isfinite(draws).all()) and bool(torch.isfinite(mean).all()) and bool((var >= 0).all()),
+          "mcmc_latent: non-finite draws or moments")
+    lap = model.predict_f(x)[0].ravel()
+    corr = float(np.corrcoef(draws.mean(0).double().cpu().numpy().ravel(), lap)[0, 1])
+    out["corr_with_laplace"] = corr
+    check(corr > 0.99, f"mcmc_latent: the draws' mean correlates {corr} with the Laplace mode (JAX test: > 0.99)")
+    check(out["launches"]["rbf_gram"] > 0, "mcmc_latent never launched rbf_gram")
+    print(f"# mcmc_latent (LaplaceGP Bernoulli, Rbf, n={MC_LATENT_N}, float32, {MC_LATENT_BURN} + {MC_LATENT_DRAWS}, "
+          f"captured) on {card_line()}: prior factor {out['chol_ms']:.1f} ms; {out['ms_per_transition']:.3f} ms a "
+          f"transition (bound: the ({MC_LATENT_N}, {MC_LATENT_N}) x (n, 1) product read once, "
+          f"{out['bound_ms']:.4f} ms), shrinks a transition mean {out['shrinks_mean']:.2f} max {out['shrinks_max']}, "
+          f"{out['host_reads_per_transition']:.2f} host reads a transition; predict_latent_mixture at "
+          f"{MC_LATENT_QUERIES} points {out['predict_ms']:.3f} ms; corr with the Laplace mode {corr:.5f}; launches "
+          f"{out['launches']}", flush=True)
+    return out
+
+
+def mcmc_phases(torch):
+    """The mcmc_example, mcmc_nuts, mcmc_fused and mcmc_latent phases, their
+    K1 shapes held against the twin as they launch; returns their results,
+    the launches of each path and the seconds they took together."""
+    t0 = time.perf_counter()
+    with new_path_grams(torch) as (shapes, held):
+        example = mcmc_example_phase(torch)
+        fused = mcmc_fused_phase(torch)
+        latent = mcmc_latent_phase(torch)
+    out = {"example": example["example"], "nuts": example["nuts"], "fused": fused, "latent": latent}
+    out["held"] = check_held_grams(held, "mcmc")
+    check_gram_coverage(unheld_shapes(shapes, held))
+    paths = {"mcmc_example": example["example"]["launches"], "mcmc_nuts": example["nuts"]["launches"],
+             "mcmc_fused": fused["launches"], "mcmc_latent": latent["launches"]}
+    check(paths["mcmc_example"]["rbf_gram"] == 0 and paths["mcmc_nuts"]["rbf_gram"] == 0,
+          "the Matern52 example launched rbf_gram")
+    seconds = time.perf_counter() - t0
+    print(f"# mcmc_example, mcmc_nuts, mcmc_fused and mcmc_latent phases: {seconds:.1f} s together; launches by path "
+          f"{paths}", flush=True)
+    return out, paths, seconds
+
+
 def build_kernels():
     """Builds the four kernel sources of the package on ``sys.path`` (one
     nvcc each, all started together) and loads them: (seconds, (gram,
@@ -6953,8 +7461,11 @@ def main() -> int:
     # starts with the zoo phases, whose readings the card bounds, so that it
     # is done when phase 15 needs it and the host-bound readings above ran
     # on an idle host
-    reference = start_iterative_reference()
+    # the zoo check's CPU side starts with it, on the card's iterates, and
+    # both are collected after the iterative phases' card work
+    reference, zoo_check = start_iterative_reference(), None
     try:
+        zoo_check = start_zoo_check(torch)
         zoo_grams = zoo_grams_phase(torch, gram, contract)
         zoo_training = zoo_training_phase(torch, gram, contract)
         done("zoo")
@@ -6964,8 +7475,11 @@ def main() -> int:
         del it_model
         torch.cuda.empty_cache()
         iterative_training["card_vs_cpu"] = iterative_card_vs_cpu(torch, reference)
+        zoo_training["card_vs_cpu"] = zoo_card_vs_cpu(zoo_check)
     finally:
         stop_process(reference[0])
+        if zoo_check is not None:
+            stop_process(zoo_check[1])
     done("iterative")
     latent, latent_s = latent_and_vecchia_phases(torch)
     done("latent_and_vecchia")
@@ -6977,6 +7491,8 @@ def main() -> int:
     done("sparse_variants")
     apps, app_paths, apps_s = application_phases(torch)
     done("applications")
+    mc, mc_paths, mc_s = mcmc_phases(torch)
+    done("mcmc")
     print(f"# seconds by phase group: {phase_s}", flush=True)
 
     paths = {"serving": serving["launches"], "training": training["launches"],
@@ -6988,7 +7504,7 @@ def main() -> int:
              "iterative_serving": iterative_serving["launches"],
              **{name: result["launches"] for name, result in latent.items()},
              **{name: result["launches"] for name, result in structured.items()},
-             **fleet_paths, **variant_paths, **app_paths}
+             **fleet_paths, **variant_paths, **app_paths, **mc_paths}
     g, c = gram_rows[0], contract_rows[0]
     gb = next(r for r in gram_rows if r.get("batch") and r["dtype"] == "float32" and r["case"] == "fleet K")
     m9, lr = mvm_rows["timed"][9], lowrank_rows["timed"][IT_PROBES + 1]
@@ -7092,7 +7608,7 @@ def main() -> int:
           f"phases {variants_s:.1f} s), bayesopt {apps['bayesopt']['peak_mem_gb']:.2f} GB, bayesopt_loop "
           f"{apps['bayesopt_loop']['peak_mem_gb']:.3f} GB, design {apps['design']['peak_mem_gb']:.2f} GB, metrics "
           f"{apps['metrics']['peak_mem_gb']:.3f} GB, kernel_search {apps['structure']['peak_mem_gb']:.3f} GB (their "
-          f"phases {apps_s:.1f} s); "
+          f"phases {apps_s:.1f} s), mcmc_fused {mc['fused']['peak_mem_gb']:.2f} GB (the mcmc phases {mc_s:.1f} s); "
           f"launches count each captured step's recorded launches once per "
           f"replay; total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels_line), flush=True)

@@ -24,12 +24,14 @@ from . import (
     util,
 )
 from . import bayesopt  # noqa: E402  (after models)
+from . import mcmc  # noqa: E402
 from . import structure  # noqa: E402  (after models, training)
 from .module import Module, get_trainable, pack_vector, set_trainable, unpack_vector, with_trainable
 from .param import Param, positive_param
 
 __all__ = [
     "bayesopt",
+    "mcmc",
     "structure",
     "bijectors",
     "convert",

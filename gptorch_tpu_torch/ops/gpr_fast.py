@@ -36,7 +36,12 @@ default branches.
 
 Memory: the forward factors its own Gram in place (peak ≈ one n² buffer
 plus the panel temporaries); the backward frees L once K⁻¹'s factor L⁻¹
-exists, and L⁻¹ once K⁻¹ exists (peak ≈ 2 n²).  The relative jitter is a
+exists, and L⁻¹ once K⁻¹ exists (peak ≈ 2 n²).
+
+Under ``torch.func`` transforms (``vmap`` over chains or models) the loss
+is an autograd function in the ``setup_context`` form whose ``vmap`` rule
+runs the mapped members one after the other; eager calls take its
+``ctx``-form twin.  The relative jitter is a
 numerical device, not part of the model: it is a constant in the adjoint
 and adds no gradient to log σ².
 """
@@ -179,62 +184,118 @@ def _fwd_impl(kind, log_ell, log_var, log_noise, x, y, jitter, nb, rel_jitter, l
     return nlml, L, alpha
 
 
+class _Held:
+    """Carries a forward's intermediates to ``setup_context`` off the
+    autograd function's outputs and saved tensors (a plain object, so that
+    ``torch.func`` passes it through as it is)."""
+
+    value = None
+
+
+def _member(args, in_dims, b):
+    """Member ``b`` of a ``vmap`` rule's arguments: each mapped tensor at
+    ``b`` on its mapped axis, a fresh :class:`_Held` for a held one, every
+    other argument as it is."""
+    return tuple(
+        _Held() if isinstance(a, _Held) else a.select(d, b) if isinstance(a, torch.Tensor) and d is not None else a
+        for a, d in zip(args, in_dims)
+    )
+
+
+def _radial_backward(ctx, g):
+    """The closed-form adjoint (module docstring) of either autograd function
+    below, from the inputs saved on ``ctx`` and its ``L`` and ``alpha``."""
+    log_ell, log_var, log_noise, x, y, log_extra = ctx.saved_tensors
+    kind, nb, alpha = ctx.kind, ctx.nb, ctx.alpha
+    L, ctx.L = ctx.L, None
+    if L is None:  # a second backward (retain_graph, gradcheck)
+        jitter, rel_jitter = ctx.jitter
+        _, L, _ = _fwd_impl(kind, log_ell, log_var, log_noise, x, y, jitter, nb, rel_jitter, log_extra)
+    dy = y.shape[1]
+    A = _solve_lower_t(L, alpha)  # L⁻ᵀα = K⁻¹Y
+    Linv = blocked_trtri(L, min(nb, 1024))
+    del L
+    Kinv = tril_square_rec(Linv, min(nb, 512), 4096)
+    del Linv
+
+    xs = _scaled(x, log_ell)
+    svar, rowsum, MX, sextra = _contractions(Kinv, A, xs, log_var, dy, kind, log_extra)
+    d_log_var = 0.5 * svar
+    d_log_ell_full = torch.sum(rowsum[:, None] * torch.square(xs), dim=0) - torch.sum(xs * MX, dim=0)
+    if log_ell.ndim == 0:
+        d_log_ell = torch.sum(d_log_ell_full)
+    elif log_ell.shape[0] == 1 and x.shape[1] != 1:
+        d_log_ell = torch.sum(d_log_ell_full, dim=0, keepdim=True)
+    else:
+        d_log_ell = d_log_ell_full
+    tr_W = dy * torch.trace(Kinv) - torch.sum(torch.square(A))
+    d_log_noise = 0.5 * torch.exp(log_noise) * tr_W
+    if log_extra.numel():
+        d_log_extra = (0.5 * sextra).expand(log_extra.shape).to(log_extra.dtype)
+    else:
+        d_log_extra = torch.zeros_like(log_extra)
+    return (
+        None,
+        g * d_log_ell,
+        g * d_log_var.reshape(log_var.shape),
+        g * d_log_noise.reshape(log_noise.shape),
+        None,
+        None,
+        None,
+        None,
+        None,
+        g * d_log_extra,
+    )
+
+
+def _radial_context(ctx, kind, log_ell, log_var, log_noise, x, y, jitter, nb, rel_jitter, log_extra, L, alpha):
+    ctx.kind, ctx.nb, ctx.jitter = kind, nb, (jitter, rel_jitter)
+    # L is an intermediate, kept on ctx (not saved) so the backward can
+    # drop it before K⁻¹ is allocated; a second backward refactors.
+    ctx.L, ctx.alpha = L, alpha
+    ctx.save_for_backward(log_ell, log_var, log_noise, x, y, log_extra)
+
+
 class _RadialNLMLCore(torch.autograd.Function):
+    """The fused NLML for calls under ``torch.func`` transforms: the
+    ``setup_context`` form, whose ``vmap`` rule runs the mapped members one
+    after the other through this function (each its own Gram, factor and
+    contraction; a Gram at the fused sizes fills the card alone)."""
+
     @staticmethod
-    def forward(ctx, kind, log_ell, log_var, log_noise, x, y, jitter, nb, rel_jitter, log_extra):
-        nlml, L, alpha = _fwd_impl(
-            kind, log_ell, log_var, log_noise, x, y, jitter, nb, rel_jitter, log_extra
-        )
-        ctx.kind, ctx.nb, ctx.jitter = kind, nb, (jitter, rel_jitter)
-        # L is an intermediate, kept on ctx (not saved) so the backward can
-        # drop it before K⁻¹ is allocated; a second backward refactors.
-        ctx.L = L
-        ctx.save_for_backward(log_ell, log_var, log_noise, x, y, alpha, log_extra)
+    def forward(kind, log_ell, log_var, log_noise, x, y, jitter, nb, rel_jitter, log_extra, held):
+        nlml, L, alpha = _fwd_impl(kind, log_ell, log_var, log_noise, x, y, jitter, nb, rel_jitter, log_extra)
+        held.value = (L, alpha)
         return nlml
 
     @staticmethod
-    def backward(ctx, g):
-        log_ell, log_var, log_noise, x, y, alpha, log_extra = ctx.saved_tensors
-        kind, nb = ctx.kind, ctx.nb
-        L, ctx.L = ctx.L, None
-        if L is None:  # a second backward (retain_graph, gradcheck)
-            jitter, rel_jitter = ctx.jitter
-            _, L, _ = _fwd_impl(kind, log_ell, log_var, log_noise, x, y, jitter, nb, rel_jitter, log_extra)
-        dy = y.shape[1]
-        A = _solve_lower_t(L, alpha)  # L⁻ᵀα = K⁻¹Y
-        Linv = blocked_trtri(L, min(nb, 1024))
-        del L
-        Kinv = tril_square_rec(Linv, min(nb, 512), 4096)
-        del Linv
+    def setup_context(ctx, inputs, output):
+        *args, held = inputs
+        L, alpha = held.value  # read at every level of nested transforms
+        _radial_context(ctx, *args, L, alpha)
 
-        xs = _scaled(x, log_ell)
-        svar, rowsum, MX, sextra = _contractions(Kinv, A, xs, log_var, dy, kind, log_extra)
-        d_log_var = 0.5 * svar
-        d_log_ell_full = torch.sum(rowsum[:, None] * torch.square(xs), dim=0) - torch.sum(xs * MX, dim=0)
-        if log_ell.ndim == 0:
-            d_log_ell = torch.sum(d_log_ell_full)
-        elif log_ell.shape[0] == 1 and x.shape[1] != 1:
-            d_log_ell = torch.sum(d_log_ell_full, dim=0, keepdim=True)
-        else:
-            d_log_ell = d_log_ell_full
-        tr_W = dy * torch.trace(Kinv) - torch.sum(torch.square(A))
-        d_log_noise = 0.5 * torch.exp(log_noise) * tr_W
-        if log_extra.numel():
-            d_log_extra = (0.5 * sextra).expand(log_extra.shape).to(log_extra.dtype)
-        else:
-            d_log_extra = torch.zeros_like(log_extra)
-        return (
-            None,
-            g * d_log_ell,
-            g * d_log_var.reshape(log_var.shape),
-            g * d_log_noise.reshape(log_noise.shape),
-            None,
-            None,
-            None,
-            None,
-            None,
-            g * d_log_extra,
-        )
+    @staticmethod
+    def backward(ctx, g):
+        return _radial_backward(ctx, g) + (None,)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        members = [_RadialNLMLCore.apply(*_member(args, in_dims, b)) for b in range(info.batch_size)]
+        return torch.stack(members), 0
+
+
+class _RadialNLMLCoreEager(torch.autograd.Function):
+    """:class:`_RadialNLMLCore` in the ``ctx`` form, for calls outside
+    ``torch.func`` transforms (the ``setup_context`` form binds its
+    arguments by ``inspect.signature`` on every call)."""
+
+    @staticmethod
+    def forward(ctx, kind, log_ell, log_var, log_noise, x, y, jitter, nb, rel_jitter, log_extra):
+        nlml, L, alpha = _fwd_impl(kind, log_ell, log_var, log_noise, x, y, jitter, nb, rel_jitter, log_extra)
+        _radial_context(ctx, kind, log_ell, log_var, log_noise, x, y, jitter, nb, rel_jitter, log_extra, L, alpha)
+        return nlml
+
+    backward = staticmethod(_radial_backward)
 
 
 def radial_nlml(kind, log_ell, log_var, log_noise, x, y, jitter=0.0, nb=1024, rel_jitter=0.0,
@@ -260,7 +321,10 @@ def radial_nlml(kind, log_ell, log_var, log_noise, x, y, jitter=0.0, nb=1024, re
                 "log_extra (rq: log alpha, shape (1,))"
             )
         log_extra = x.new_zeros((0,))
-    return _RadialNLMLCore.apply(kind, log_ell, log_var, log_noise, x, y, jitter, nb, rel_jitter, log_extra)
+    args = (kind, log_ell, log_var, log_noise, x, y, jitter, nb, rel_jitter, log_extra)
+    if torch._C._are_functorch_transforms_active():  # vmap, grad, ...: the form with a vmap rule
+        return _RadialNLMLCore.apply(*args, _Held())
+    return _RadialNLMLCoreEager.apply(*args)
 
 
 def rbf_nlml(log_ell, log_var, log_noise, x, y, jitter=0.0, nb=1024, rel_jitter=0.0):

@@ -27,7 +27,10 @@ backward (:mod:`~gptorch_tpu_torch.ops.gram`).
 The backward reads the kernel's and the mean's parameters as they were in
 the forward (the tensors a ``functional_call`` stood in, say), and may run
 more than once (``retain_graph``, ``gradcheck``): a second run refactors K,
-since the first drops L.
+since the first drops L.  Both evaluate the modules at the parameter
+tensors the autograd function is given, so under ``torch.func.vmap`` its
+rule runs the mapped members one after the other, as
+:mod:`~gptorch_tpu_torch.ops.gpr_fast`'s does.
 
 Restriction, as in the JAX package: no :class:`~gptorch_tpu_torch.kernels.White`
 component (its cross-covariance K(X_R, X) is zeros, so the row rebuild would
@@ -43,8 +46,9 @@ import math
 
 import torch
 
-from ..module import call_with_parameters, trainable_parameters
+from ..module import call_with_parameters
 from .blocked import _cholesky_into, _solve_lower, _solve_lower_t, blocked_trtri, tril_square_rec
+from .gpr_fast import _Held, _member
 
 
 def _chunk_bounds(n: int, target: int = 4096):
@@ -113,54 +117,121 @@ class _ModuleAt:
         return call_with_parameters(self.module, self.tensors, "Kdiag", *args)
 
 
+def _parameter_slots(kernel, mean):
+    """Every parameter tensor of ``kernel`` and ``mean`` once (one shared by
+    two names or modules counts once), and for each module the (name,
+    index) of its parameters in that list: how the autograd functions below
+    stand the tensors they are given in for the modules' parameters."""
+    tensors, index, slots = [], {}, []
+    for module in (kernel, mean):
+        own = []
+        for name, t in module.named_parameters():
+            if id(t) not in index:
+                index[id(t)] = len(tensors)
+                tensors.append(t)
+            own.append((name, index[id(t)]))
+        slots.append(tuple(own))
+    return tensors, tuple(slots)
+
+
+def _modules_at(kernel, mean, slots, params):
+    """``kernel`` and ``mean`` evaluated at ``params`` (see
+    :func:`_parameter_slots`)."""
+    return tuple(_ModuleAt(m, {name: params[i] for name, i in own}) for m, own in zip((kernel, mean), slots))
+
+
+def _general_backward(ctx, g):
+    """The streamed adjoint (module docstring) of either autograd function
+    below: gradients of the noise and of the parameter tensors, those that
+    require a gradient."""
+    noise, x, y, *params = ctx.saved_tensors
+    nb, alpha = ctx.nb, ctx.alpha
+    kernel, mean = _modules_at(*ctx.modules, params)
+    L, ctx.L = ctx.L, None
+    if L is None:  # a second backward: refactor
+        jitter, rel_jitter, precision = ctx.config
+        _, L, _ = _fwd_impl(kernel, mean, noise, x, y, jitter, nb, rel_jitter, precision)
+    n, dy = y.shape
+    A = _solve_lower_t(L, alpha)  # K⁻¹ (Y − m(X))
+    Linv = blocked_trtri(L, min(nb, 1024))
+    del L
+    Kinv = tril_square_rec(Linv, min(nb, 512), 4096)
+    del Linv
+
+    wanted = [i for i, p in enumerate(params) if p.requires_grad]
+    grads = [torch.zeros_like(p) for p in params]
+
+    def accumulate(out, cotangent):
+        if not out.requires_grad:
+            return
+        found = torch.autograd.grad(out, [params[i] for i in wanted], grad_outputs=cotangent, allow_unused=True)
+        for i, gp in zip(wanted, found):
+            if gp is not None:
+                grads[i].add_(gp)
+
+    with torch.enable_grad():
+        accumulate(mean(x), -g * A)
+        for lo, hi in _chunk_bounds(n, chunk_rows(kernel, x)):
+            W_c = dy * Kinv[lo:hi] - A[lo:hi] @ A.mT
+            accumulate(kernel.K(x[lo:hi], x), (0.5 * g) * W_c)
+    tr_W = dy * torch.trace(Kinv) - torch.sum(torch.square(A))
+    d_noise = (g * 0.5 * tr_W).reshape(noise.shape).to(noise.dtype)
+    return d_noise, grads
+
+
+def _general_context(ctx, kernel, mean, slots, jitter, nb, rel_jitter, precision, noise, x, y, params, L, alpha):
+    ctx.config = (jitter, rel_jitter, precision)
+    ctx.nb = nb
+    ctx.modules = (kernel, mean, slots)
+    ctx.L, ctx.alpha = L, alpha  # intermediates: the backward drops L before K⁻¹ exists
+    ctx.save_for_backward(noise, x, y, *params)
+
+
 class _GeneralNLMLCore(torch.autograd.Function):
+    """The fused NLML for calls under ``torch.func`` transforms: the
+    ``setup_context`` form, whose ``vmap`` rule runs the mapped members one
+    after the other through this function."""
+
     @staticmethod
-    def forward(ctx, kernel, mean, jitter, nb, rel_jitter, precision, noise, x, y, *params):
-        nlml, L, alpha = _fwd_impl(kernel, mean, noise, x, y, jitter, nb, rel_jitter, precision)
-        ctx.config = (jitter, rel_jitter, precision)
-        ctx.nb = nb
-        # the modules with the parameter tensors this forward read
-        ctx.kernel = (kernel, dict(kernel.named_parameters()))
-        ctx.mean = (mean, dict(mean.named_parameters()))
-        ctx.params = params  # identify the leaves that kernel.K and mean read
-        ctx.L = L  # an intermediate, dropped by the backward before K⁻¹ exists
-        ctx.save_for_backward(noise, x, y, alpha)
+    def forward(kernel, mean, slots, jitter, nb, rel_jitter, precision, held, noise, x, y, *params):
+        kernel_at, mean_at = _modules_at(kernel, mean, slots, params)
+        nlml, L, alpha = _fwd_impl(kernel_at, mean_at, noise, x, y, jitter, nb, rel_jitter, precision)
+        held.value = (L, alpha)
+        return nlml
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        *config, held, noise, x, y = inputs[:11]
+        L, alpha = held.value  # read at every level of nested transforms
+        _general_context(ctx, *config, noise, x, y, inputs[11:], L, alpha)
+
+    @staticmethod
+    def backward(ctx, g):
+        d_noise, grads = _general_backward(ctx, g)
+        return (None,) * 8 + (d_noise, None, None, *grads)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        members = [_GeneralNLMLCore.apply(*_member(args, in_dims, b)) for b in range(info.batch_size)]
+        return torch.stack(members), 0
+
+
+class _GeneralNLMLCoreEager(torch.autograd.Function):
+    """:class:`_GeneralNLMLCore` in the ``ctx`` form, for calls outside
+    ``torch.func`` transforms (the ``setup_context`` form binds its
+    arguments by ``inspect.signature`` on every call)."""
+
+    @staticmethod
+    def forward(ctx, kernel, mean, slots, jitter, nb, rel_jitter, precision, noise, x, y, *params):
+        kernel_at, mean_at = _modules_at(kernel, mean, slots, params)
+        nlml, L, alpha = _fwd_impl(kernel_at, mean_at, noise, x, y, jitter, nb, rel_jitter, precision)
+        _general_context(ctx, kernel, mean, slots, jitter, nb, rel_jitter, precision, noise, x, y, params, L, alpha)
         return nlml
 
     @staticmethod
     def backward(ctx, g):
-        noise, x, y, alpha = ctx.saved_tensors
-        params, nb = ctx.params, ctx.nb
-        kernel, mean = _ModuleAt(*ctx.kernel), _ModuleAt(*ctx.mean)
-        L, ctx.L = ctx.L, None
-        if L is None:  # a second backward: refactor
-            jitter, rel_jitter, precision = ctx.config
-            _, L, _ = _fwd_impl(kernel, mean, noise, x, y, jitter, nb, rel_jitter, precision)
-        n, dy = y.shape
-        A = _solve_lower_t(L, alpha)  # K⁻¹ (Y − m(X))
-        Linv = blocked_trtri(L, min(nb, 1024))
-        del L
-        Kinv = tril_square_rec(Linv, min(nb, 512), 4096)
-        del Linv
-
-        grads = [torch.zeros_like(p) for p in params]
-
-        def accumulate(out, cotangent):
-            if not out.requires_grad:
-                return
-            found = torch.autograd.grad(out, params, grad_outputs=cotangent, allow_unused=True)
-            for acc, gp in zip(grads, found):
-                if gp is not None:
-                    acc.add_(gp)
-
-        with torch.enable_grad():
-            accumulate(mean(x), -g * A)
-            for lo, hi in _chunk_bounds(n, chunk_rows(kernel, x)):
-                W_c = dy * Kinv[lo:hi] - A[lo:hi] @ A.mT
-                accumulate(kernel.K(x[lo:hi], x), (0.5 * g) * W_c)
-        tr_W = dy * torch.trace(Kinv) - torch.sum(torch.square(A))
-        d_noise = (g * 0.5 * tr_W).reshape(noise.shape).to(noise.dtype)
-        return (None,) * 6 + (d_noise, None, None, *grads)
+        d_noise, grads = _general_backward(ctx, g)
+        return (None,) * 7 + (d_noise, None, None, *grads)
 
 
 def general_nlml(kernel, mean, noise, x, y, jitter=0.0, nb=1024, rel_jitter=0.0,
@@ -183,6 +254,8 @@ def general_nlml(kernel, mean, noise, x, y, jitter=0.0, nb=1024, rel_jitter=0.0,
     """
     if precision not in ("highest", "default"):
         raise ValueError("precision must be 'highest' or 'default'")
-    return _GeneralNLMLCore.apply(
-        kernel, mean, jitter, nb, rel_jitter, precision, noise, x, y, *trainable_parameters(kernel, mean)
-    )
+    params, slots = _parameter_slots(kernel, mean)
+    config = (kernel, mean, slots, jitter, nb, rel_jitter, precision)
+    if torch._C._are_functorch_transforms_active():  # vmap, grad, ...: the form with a vmap rule
+        return _GeneralNLMLCore.apply(*config, _Held(), noise, x, y, *params)
+    return _GeneralNLMLCoreEager.apply(*config, noise, x, y, *params)

@@ -1743,3 +1743,287 @@ def test_k1_grid_choices_equal(cuda, dtype, b, n1, n2):
     want = gram.rbf_gram(x1, x2, var=var, diag=diag)
     for grid in (1, 7, 133):
         assert torch.equal(gram._launch(x1, x2, var, diag, grid=grid), want)
+
+
+# -- MCMC (gptorch_tpu_torch.mcmc): the JAX tests' statistical assertions at their
+# own sizes, captured against eager, and the fused losses' vmap rule -----------------
+
+
+@pytest.fixture
+def f64():
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    yield
+    torch.set_default_dtype(old)
+
+
+def _gen(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def test_mcmc_standard_normal_moments(cuda, f64):
+    from gptorch_tpu_torch import mcmc
+
+    res, _ = mcmc.hmc(lambda t: -0.5 * torch.sum(t["x"] ** 2), {"x": torch.zeros(5)}, _gen(0), num_samples=1000,
+                      num_warmup=500)
+    qs = res.samples.cpu().numpy()
+    assert qs.shape == (1000, 5) and int(res.divergent.sum()) == 0
+    assert 0.6 < float(res.accept_prob.mean()) <= 1.0
+    assert np.abs(qs.mean(0)).max() < 0.15 and np.allclose(qs.std(0), 1.0, atol=0.15)
+
+
+def test_mcmc_mass_adaptation_scales_to_target(cuda, f64):
+    from gptorch_tpu_torch import mcmc
+
+    scales = torch.tensor([10.0, 0.1], device="cuda")
+    res, _ = mcmc.hmc(lambda t: -0.5 * torch.sum((t["x"] / scales) ** 2), {"x": torch.zeros(2)}, _gen(1),
+                      num_samples=1500, num_warmup=1000)
+    s = scales.cpu().numpy()
+    assert np.allclose(res.samples.cpu().numpy().std(0) / s, 1.0, atol=0.25)
+    ratio = res.inv_mass.cpu().numpy() / s**2
+    assert np.all(ratio > 0.4) and np.all(ratio < 2.5)
+
+
+def test_mcmc_nuts_correlated_gaussian_moments(cuda, f64):
+    from gptorch_tpu_torch import mcmc
+
+    rng = np.random.RandomState(0)
+    A = rng.randn(3, 3)
+    cov = A @ A.T + 0.5 * np.eye(3)
+    mu = np.array([1.0, -2.0, 0.5])
+    prec, mu_t = torch.tensor(np.linalg.inv(cov), device="cuda"), torch.tensor(mu, device="cuda")
+    res, unravel = mcmc.nuts(lambda x: -0.5 * (x - mu_t) @ prec @ (x - mu_t), torch.zeros(3), _gen(0),
+                             num_samples=3000, num_warmup=1000)
+    s = res.samples.cpu().numpy()
+    assert unravel(res.samples[0]).shape == (3,)
+    assert float(res.divergent.double().mean()) == 0.0
+    assert 0.6 < float(res.accept_prob.mean()) < 0.95
+    assert np.all(np.abs(s.mean(0) - mu) < 0.2)
+    assert np.max(np.abs(np.cov(s.T) - cov)) / np.max(np.abs(cov)) < 0.15
+
+
+def test_mcmc_nuts_anisotropic_without_mass_adaptation(cuda, f64):
+    from gptorch_tpu_torch import mcmc
+
+    scales = torch.tensor([1.0, 30.0], device="cuda")
+    res, _ = mcmc.nuts(lambda x: -0.5 * torch.sum((x / scales) ** 2), torch.zeros(2), _gen(4), num_samples=2000,
+                       num_warmup=500, adapt_mass=False)
+    assert np.allclose(res.samples.cpu().numpy().std(0) / scales.cpu().numpy(), 1.0, atol=0.3)
+
+
+def _prior_only(prior):
+    from gptorch_tpu_torch.module import Module
+    from gptorch_tpu_torch.param import positive_param
+
+    class PriorOnly(Module):
+        def __init__(self):
+            super().__init__()
+            self.rate = positive_param(1.0, prior=prior)
+
+        def _loss(self):
+            return -self.log_prior()
+
+    return PriorOnly().to("cuda")
+
+
+@pytest.mark.parametrize("jacobian, mean", [(True, -0.5), (False, -0.5 - 0.7**2)])
+def test_mcmc_jacobian_correction(cuda, f64, jacobian, mean):
+    """LogNormal(μ, s) prior under the Exp bijector: with the correction the
+    raw value is exactly N(μ, s); without it the mode shifts to μ − s²."""
+    from gptorch_tpu_torch import mcmc, priors
+
+    model = _prior_only(priors.LogNormal(-0.5, 0.7))
+    res, _ = mcmc.hmc(mcmc.log_posterior_fn(model, jacobian=jacobian), get_trainable(model), _gen(3),
+                      num_samples=2000, num_warmup=500)
+    raw = res.samples[:, 0].cpu().numpy()
+    assert abs(raw.mean() - mean) < 0.08
+    if jacobian:
+        assert abs(raw.std() - 0.7) < 0.08
+
+
+def _mcmc_gpr():
+    from gptorch_tpu_torch import priors
+    from gptorch_tpu_torch.param import positive_param
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(40, 1)
+    y = np.sin(2 * x) + 0.2 * rng.randn(40, 1)
+    k = kernels.Rbf(1, variance=1.0, length_scales=0.5)
+    k.variance = positive_param(1.0, prior=priors.LogNormal(0.0, 1.0))
+    k.length_scales = positive_param(0.5, prior=priors.LogNormal(-1.0, 1.0))
+    return GPR(x, y, k, likelihood=likelihoods.Gaussian(variance=0.05), device="cuda")
+
+
+@pytest.fixture(scope="module")
+def mcmc_gpr_samples():
+    """The JAX tests' fixture (2 chains x 300 + 300, 16 leapfrogs), captured
+    under the fixed jitter policy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA CUDA card")
+    from gptorch_tpu_torch import mcmc
+
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        model = _mcmc_gpr()
+        with settings.override(jitter_policy="fixed"):
+            samples, res = mcmc.sample_posterior(model, _gen(1), num_samples=300, num_warmup=300, num_chains=2,
+                                                 num_leapfrog=16)
+            assert mcmc.sample_posterior.last_run.capture
+            nuts_samples, nuts_res = mcmc.sample_posterior(model, _gen(7), num_samples=300, num_warmup=300,
+                                                           num_chains=2, sampler="nuts")
+    finally:
+        torch.set_default_dtype(old)
+    return model, samples, res, nuts_samples, nuts_res
+
+
+def test_mcmc_model_posterior_shapes_mixing_and_truth(cuda, mcmc_gpr_samples):
+    from gptorch_tpu_torch import mcmc
+
+    model, samples, res, _, _ = mcmc_gpr_samples
+    assert set(samples) == {"kernel.length_scales", "kernel.variance", "likelihood.variance"}
+    ls = samples["kernel.length_scales"]
+    assert ls.shape == (2, 300) and bool((ls > 0).all()) and bool((samples["likelihood.variance"] > 0).all())
+    assert int(res.divergent.sum()) == 0 and float(res.accept_prob.mean()) > 0.6
+    assert float(mcmc.potential_scale_reduction(ls)) < 1.1 and float(mcmc.effective_sample_size(ls)) > 100.0
+    assert 0.01 < float(samples["likelihood.variance"].mean()) < 0.1
+    assert 0.3 < float(ls.mean()) < 2.0
+
+
+def test_mcmc_nuts_matches_hmc(cuda, mcmc_gpr_samples):
+    from gptorch_tpu_torch import mcmc
+
+    _, hmc_samples, _, samples, res = mcmc_gpr_samples
+    assert set(samples) == set(hmc_samples)
+    assert int(res.divergent.sum()) == 0 and float(res.accept_prob.mean()) > 0.6
+    for name in samples:
+        a, b = samples[name].ravel(), hmc_samples[name].ravel()
+        assert abs(float(a.mean() - b.mean())) < max(float(a.std()), float(b.std()))
+        assert float(mcmc.potential_scale_reduction(samples[name]).max()) < 1.1
+
+
+def test_mcmc_predict_mixture(cuda, f64, mcmc_gpr_samples, monkeypatch):
+    from gptorch_tpu_torch import mcmc
+
+    model, samples, _, _, _ = mcmc_gpr_samples
+    xs = np.linspace(-2, 2, 7)[:, None]
+    mean, var = mcmc.predict_mixture(model, samples, xs)
+    assert mean.shape == (7, 1) and var.shape == (7, 1)
+    assert bool(torch.isfinite(mean).all()) and float(var.min()) > 1e-4
+    point_mean, _ = model.predict_y(xs)
+    assert float((mean.cpu() - torch.as_tensor(point_mean)).abs().max()) < 0.5
+    # chunks of draws give the same mixture
+    monkeypatch.setattr(mcmc, "_mixture_chunk", lambda model, draws: 7)
+    chunked = mcmc.predict_mixture(model, samples, xs)
+    for a, b in zip((mean, var), chunked):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+
+
+def _latent_gpr(n, seed):
+    rng = np.random.RandomState(seed)
+    x = np.linspace(-2, 2, n)[:, None]
+    y = np.sin(2 * x) + 0.1 * rng.randn(n, 1)
+    return x, GPR(x, y, kernels.Rbf(1), likelihood=likelihoods.Gaussian(0.01), device="cuda")
+
+
+def test_mcmc_sample_latent_matches_conjugate_posterior(cuda, f64):
+    from gptorch_tpu_torch import mcmc
+
+    x, m = _latent_gpr(30, 0)
+    draws = mcmc.sample_latent(m, _gen(0), num_samples=2000, num_burn=300)
+    assert draws.shape == (2000, 30, 1)
+    mu_exact, var_exact = m.predict_f(x)
+    d = draws.cpu().numpy()
+    assert (np.abs(d.mean(0) - mu_exact) < np.sqrt(var_exact)).all()
+    assert d.var(0) == pytest.approx(var_exact, abs=2e-3)
+
+
+def test_mcmc_predict_latent_mixture_matches_exact(cuda, f64):
+    from gptorch_tpu_torch import mcmc
+
+    _, m = _latent_gpr(25, 1)
+    draws = mcmc.sample_latent(m, _gen(2), num_samples=1500, num_burn=300)
+    xs = np.linspace(-1.8, 1.8, 9)[:, None]
+    mm, vv = mcmc.predict_latent_mixture(m, draws, xs)
+    me, ve = m.predict_f(xs)
+    assert (np.abs(mm.cpu().numpy() - me) < 2 * np.sqrt(ve) + 0.02).all()
+    assert vv.cpu().numpy() == pytest.approx(ve, abs=3e-3)
+
+
+def test_mcmc_bernoulli_agrees_with_laplace(cuda, f64):
+    from gptorch_tpu_torch import mcmc
+    from gptorch_tpu_torch.models import LaplaceGP
+
+    x = np.linspace(-2, 2, 30)[:, None]
+    y = (np.sin(2 * x) > 0).astype(float)
+    m = LaplaceGP(x, y, kernels.Rbf(1), likelihoods.Bernoulli(), device="cuda")
+    draws = mcmc.sample_latent(m, _gen(3), num_samples=1500, num_burn=400)
+    corr = np.corrcoef(draws.mean(0).cpu().numpy().ravel(), m.predict_f(x)[0].ravel())[0, 1]
+    assert corr > 0.99
+
+
+def test_mcmc_elliptical_slice_reproducible_and_multicolumn(cuda, f64):
+    from gptorch_tpu_torch import mcmc
+
+    L = torch.eye(4, device="cuda")
+    loglik = lambda f: -0.5 * torch.sum(torch.square(f - 1.0))  # noqa: E731
+    f0 = torch.zeros((4, 2), device="cuda")
+    d1, d2 = (mcmc.elliptical_slice(loglik, L, f0, _gen(0), num_samples=50, num_burn=10) for _ in range(2))
+    assert d1.shape == (50, 4, 2) and torch.equal(d1, d2)
+    assert mcmc.elliptical_slice.last_run.capture
+    d3 = mcmc.elliptical_slice(loglik, L, f0, _gen(1), num_samples=4000, num_burn=200)
+    assert float(d3.mean()) == pytest.approx(0.5, abs=0.05)
+    assert float(d3.var()) == pytest.approx(0.5, abs=0.05)
+
+
+@pytest.mark.parametrize("sampler", ["hmc", "nuts"])
+def test_mcmc_captured_equals_eager(cuda, f64, sampler, monkeypatch):
+    """The captured transitions replay the eager run bit for bit on the same
+    draws (the private generator registered with the graphs continues the
+    caller's stream), on the GPR's log posterior under the fixed policy."""
+    from gptorch_tpu_torch import mcmc
+
+    model = _mcmc_gpr()
+    logpi = mcmc.log_posterior_fn(model)
+    fn = mcmc.hmc if sampler == "hmc" else mcmc.nuts
+    kw = {"num_leapfrog": 8} if sampler == "hmc" else {"max_depth": 6}
+    runs = []
+    with settings.override(jitter_policy="fixed"):
+        for capture in (True, False):
+            monkeypatch.setattr(mcmc, "captures", lambda device, reads_host=False: capture)
+            gen = _gen(5)
+            res, _ = fn(logpi, get_trainable(model), gen, num_samples=20, num_warmup=20, **kw)
+            runs.append((res, gen.get_state()))
+    (cap, cap_state), (eager, eager_state) = runs
+    for a, b in zip(cap, eager):
+        if a is not None:
+            assert torch.equal(a, b)
+    assert torch.equal(cap_state, eager_state)  # the caller's generator advanced alike
+
+
+@pytest.mark.parametrize("kind", ["rbf", "matern32", "composite"])
+def test_fused_loss_vmap_rule_matches_a_loop_of_chains(cuda, f64, kind):
+    """The fused losses' vmap rule on the card (K1 and K2 once per mapped
+    member for rbf) against a loop over the members, values and gradients."""
+    from gptorch_tpu_torch import ops
+    from gptorch_tpu_torch.module import call_with_trainable
+
+    rng = np.random.RandomState(0)
+    x, y = rng.randn(512, 8), rng.randn(512, 1)
+    k = {"rbf": lambda: kernels.Rbf(8, ARD=True), "matern32": lambda: kernels.Matern32(8, ARD=True),
+         "composite": lambda: kernels.Rbf(8, ARD=True) + kernels.Linear(8)}[kind]()
+    m = GPR(x, y, k, likelihood=likelihoods.Gaussian(0.1), fast=True, fast_block=128, device="cuda")
+    start = get_trainable(m)
+    raws = {key: torch.stack([v.detach(), v.detach() + 0.1, v.detach() - 0.2]).requires_grad_()
+            for key, v in start.items()}
+    ops.reset_launch_counts()
+    got = torch.func.vmap(lambda v: call_with_trainable(m, v, "_loss"))(raws)
+    grads = torch.autograd.grad(torch.sum(got), list(raws.values()))
+    counts = ops.launch_counts()
+    if kind == "rbf":
+        assert counts["rbf_gram"] == 3 and counts["radial_contractions"] == 3
+    loop = torch.stack([call_with_trainable(m, {key: v[i] for key, v in raws.items()}, "_loss") for i in range(3)])
+    loop_grads = torch.autograd.grad(torch.sum(loop), list(raws.values()))
+    torch.testing.assert_close(got, loop, rtol=1e-12, atol=1e-10)
+    for a, b in zip(grads, loop_grads):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10)

@@ -37,6 +37,16 @@ And one gap of the prediction decorator:
    absorbed a batch), as the JAX package's decorator falls back to
    ``Z.raw``: a numpy ``predict_f`` returns numpy of Z's dtype, before and
    after a batch.
+
+And one repair that the MCMC chains need (the JAX package ``vmap``s a
+``custom_vjp`` loss):
+
+9. The fused exact-GP losses (``radial_nlml`` of each kind, and
+   ``general_nlml``) run under ``torch.func.vmap``: their autograd
+   functions have the ``setup_context`` form and a ``vmap`` rule that runs
+   the mapped members one after the other; ``vmap`` over a ``fast=True``
+   GPR's ``_loss`` and its gradient equal the JAX package's ``jax.vmap``
+   (1e-9).
 """
 
 import jax
@@ -52,7 +62,7 @@ from gptorch_tpu.models import GPR as JaxGPR
 from gptorch_tpu.models import SVGP as JaxSVGP
 from gptorch_tpu.module import get_trainable as jax_get_trainable
 from gptorch_tpu.module import with_trainable as jax_with_trainable
-from gptorch_tpu_torch import bijectors, convert, kernels, likelihoods, param, settings
+from gptorch_tpu_torch import bijectors, convert, kernels, likelihoods, module, param, settings
 from gptorch_tpu_torch.models import GPR, SVGP
 from gptorch_tpu_torch.module import get_trainable
 from gptorch_tpu_torch.ops import contract
@@ -455,3 +465,45 @@ def test_array_like_queries_match_jax():
     for model in (jm, tm):
         with pytest.raises((TypeError, AttributeError)):
             model.predict_f(xs)
+
+
+# -- 9. the fused losses under torch.func.vmap -------------------------------------------
+
+
+def _fused_pair(kind):
+    """A fast=True GPR of each package (n = 64, d = 2, ARD), and three
+    stacked raw values around its start."""
+    x, y = _data(n=64)
+    if kind == "composite":
+        jk = jax_kernels.Rbf(D, ARD=True) + jax_kernels.Linear(D)
+        k = kernels.Rbf(D, ARD=True) + kernels.Linear(D)
+    else:
+        name = {"rbf": "Rbf", "matern12": "Matern12", "matern32": "Matern32", "matern52": "Matern52",
+                "rq": "RationalQuadratic"}[kind]
+        jk, k = getattr(jax_kernels, name)(D, ARD=True), getattr(kernels, name)(D, ARD=True)
+    jm = JaxGPR(x, y, jk, likelihood=jax_likelihoods.Gaussian(0.1), fast=True, fast_block=32)
+    m = GPR(x, y, k, likelihood=likelihoods.Gaussian(0.1), fast=True, fast_block=32, device="cpu")
+    start = {key: np.asarray(v) for key, v in jax_get_trainable(jm).items()}
+    rng = np.random.RandomState(9)
+    stacked = {key: np.stack([v, v + 0.1 * rng.randn(*v.shape), v - 0.2 * rng.rand(*v.shape)])
+               for key, v in start.items()}
+    return jm, m, stacked
+
+
+@pytest.mark.parametrize("kind", ["rbf", "matern12", "matern32", "matern52", "rq", "composite"])
+def test_fused_losses_map_under_vmap_as_jax(kind):
+    jm, m, stacked = _fused_pair(kind)
+    assert m._fast_eligible(m.X) == (kind != "composite") and m._general_eligible(m.X)
+    want, want_grads = jax.jit(jax.vmap(jax.value_and_grad(lambda v: jax_with_trainable(jm, v)._loss())))(
+        {key: jnp.asarray(v) for key, v in stacked.items()})
+    raws = {key: torch.tensor(v, requires_grad=True) for key, v in stacked.items()}
+    got = torch.func.vmap(lambda v: module.call_with_trainable(m, v, "_loss"))(raws)
+    grads = torch.autograd.grad(torch.sum(got), list(raws.values()))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL)
+    for key, g in zip(raws, grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want_grads[key]), rtol=RTOL, atol=RTOL)
+    # a second backward refactors (the first dropped each member's L)
+    got = torch.func.vmap(lambda v: module.call_with_trainable(m, v, "_loss"))(raws)
+    twice = [torch.autograd.grad(torch.sum(got), list(raws.values()), retain_graph=True) for _ in range(2)]
+    for a, b in zip(*twice):
+        assert torch.equal(a, b)
