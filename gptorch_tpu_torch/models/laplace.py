@@ -100,7 +100,9 @@ class LaplaceGP(GPModel):
         carrying a with K a = f − m makes a combination of quantities in
         hand."""
         n = K.shape[0]
-        steps = torch.tensor([0.0, 1 / 32, 1 / 16, 1 / 8, 1 / 4, 1 / 2, 1.0], dtype=K.dtype, device=K.device)
+        # the grid (0, 1/32, 1/16, 1/8, 1/4, 1/2, 1), exact, built on K's
+        # device: a copy from the host cannot sit in a captured training step
+        steps = torch.cat([K.new_zeros(1), K.new_full((6,), 2.0).cumprod(0) / 64])
         f, a_prev = m_col, torch.zeros(n, dtype=K.dtype, device=K.device)
         for _ in range(self.num_newton):
             g, sw, L = self._newton_factor(K, f, y_col)
@@ -114,7 +116,7 @@ class LaplaceGP(GPModel):
             a_t = (1 - t) * a_prev + t * a_cand
             fm_t = (1 - t) * fm_prev + t * ka_cand
             psi = -0.5 * torch.sum(a_t * fm_t, dim=1) + torch.sum(self.likelihood.logp(m_col + fm_t, y_col), dim=1)
-            best = steps[torch.argmax(psi)]
+            best = steps.gather(0, torch.argmax(psi).reshape(1))[0]  # no host read, as a captured step needs
             a_prev = (1 - best) * a_prev + best * a_cand
             f = m_col + (1 - best) * fm_prev + best * ka_cand
         _, sw, L = self._newton_factor(K, f, y_col)

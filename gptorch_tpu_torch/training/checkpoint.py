@@ -2,11 +2,12 @@
 
 Counterpart of ``gptorch_tpu/training/checkpoint.py``.  :func:`save`
 stores every parameter and buffer of a model -- the trainable raws and the
-buffers such as X, Y, Z, a streaming model's statistics or ``n_seen`` -- in
-one ``.npz`` keyed by the dotted names ``named_parameters`` and
-``named_buffers`` give (``"kernel.variance.raw"``, ``"X"``, ...); the
-file is the port's own format (the JAX package keys its leaves by pytree
-path).  :func:`save_trainable` / :func:`load_trainable` store only
+buffers such as X, Y, Z, a streaming model's statistics or ``n_seen`` --
+and every tensor a module holds as a plain attribute (a posterior's
+factors: a serving posterior's X, L⁻¹ and α), as the JAX package saves
+every leaf of the pytree, in one ``.npz`` keyed by dotted names
+(``"kernel.variance.raw"``, ``"X"``, ``"Linv"``, ...); the file is the
+port's own format (the JAX package keys its leaves by pytree path).  :func:`save_trainable` / :func:`load_trainable` store only
 :func:`~gptorch_tpu_torch.module.get_trainable`'s dictionary, whose keys
 are the JAX package's: a file written by its ``save_trainable`` loads here.
 
@@ -27,10 +28,12 @@ from ..module import Module, get_trainable, set_trainable
 
 
 def _state(model: Module):
-    """(name, owner module, attribute, tensor) of every parameter and buffer,
-    a tensor shared by two paths listed under each."""
+    """(name, owner module, attribute, tensor) of every parameter, buffer
+    and tensor held as a plain attribute, a tensor shared by two paths
+    listed under each."""
     for prefix, mod in model.named_modules(remove_duplicate=False):
-        for kind in (mod._parameters, mod._buffers):
+        plain = {attr: t for attr, t in vars(mod).items() if isinstance(t, torch.Tensor)}
+        for kind in (mod._parameters, mod._buffers, plain):
             for attr, t in kind.items():
                 if t is not None:
                     yield (f"{prefix}.{attr}" if prefix else attr), mod, attr, t
@@ -49,7 +52,7 @@ def save(path: str, model: Module) -> None:
 def load(path: str, model: Module) -> Module:
     """Restore into ``model`` (built the same way) the state saved by
     :func:`save`, in place; returns ``model``.  Raises ``KeyError`` for a
-    parameter or buffer the file lacks."""
+    tensor the file lacks."""
     data = _read(path)
     for name, mod, attr, t in list(_state(model)):
         if name not in data:
@@ -59,8 +62,10 @@ def load(path: str, model: Module) -> Module:
             t.copy_(value)
         elif attr in mod._parameters:
             setattr(mod, attr, nn.Parameter(value, requires_grad=t.requires_grad))
-        else:
+        elif attr in mod._buffers:
             mod._buffers[attr] = value
+        else:
+            setattr(mod, attr, value)
     return model
 
 

@@ -1307,6 +1307,30 @@ def test_correlated_derivative_and_variant_models_card_match_cpu(cuda, name):
         np.testing.assert_allclose(a, b, rtol=0, atol=tol * max(np.abs(b).max(), 1e-300))
 
 
+def test_laplace_fit_scan_captures_as_eager(cuda):
+    """LaplaceGP's fit_scan on the card replays a captured step (its Newton
+    step grid is built on the card and the step picked with no host read)
+    and gives the eager loop's losses and values (float64, 1e-7: the two
+    Adams round their bias corrections apart, and the Newton steps' ψ ties
+    near the mode follow the rounding, as in
+    test_correlated_derivative_and_variant_models_card_match_cpu)."""
+    from gptorch_tpu_torch.models import LaplaceGP
+
+    rng = np.random.RandomState(5)
+    x = rng.randn(40, 1)
+    y = (np.sin(2 * x) + 0.3 * rng.randn(40, 1) > 0).astype(float)
+    with _float64():
+        (el, ev, _, erun, em), (cl, cv, _, crun, cm) = _captured_and_eager(
+            lambda: LaplaceGP(x, y, kernels.Rbf(1), likelihoods.Bernoulli(), device="cuda"), "Adam", 10, 0.05,
+            policy="adaptive")
+    for model in (em, cm):  # free the graph now, not in a later test's capture
+        fit.release_graphs(model)
+    assert crun["captured"] and not erun["captured"]
+    torch.testing.assert_close(cl, el, rtol=1e-7, atol=1e-7)
+    for k in ev:
+        torch.testing.assert_close(cv[k], ev[k], rtol=1e-7, atol=1e-7)
+
+
 @pytest.mark.parametrize("samples", [1, 3])
 def test_deep_gp_one_k1_launch_per_layer_gram(cuda, samples):
     """A DeepGP value-and-grad launches K1 once for each layer's Kuu and once

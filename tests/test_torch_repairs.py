@@ -47,6 +47,27 @@ And one repair that the MCMC chains need (the JAX package ``vmap``s a
    the mapped members one after the other; ``vmap`` over a ``fast=True``
    GPR's ``_loss`` and its gradient equal the JAX package's ``jax.vmap``
    (1e-9).
+
+And one repair that the serving example needs (the JAX package saves
+every leaf of a posterior's pytree):
+
+10. ``checkpoint.save`` stores the tensors a module holds as plain
+    attributes -- a posterior's factors (X, L⁻¹ and α of a serving
+    posterior) -- and ``checkpoint.load`` restores them: a posterior loaded
+    into one of another model predicts as the saved one, as in the JAX
+    package (1e-12).
+
+And one repair that the Laplace classification example needs (the JAX
+package's ``fit_scan`` compiles the Laplace evidence):
+
+11. ``LaplaceGP``'s loss builds no tensor from host data and reads none
+    back (its Newton step grid was a ``torch.tensor`` of a Python list, a
+    copy from the host, and the step was picked by indexing with a 0-d
+    tensor, a read to the host: a captured training step holds neither,
+    so ``fit_scan`` raised on the card);
+    the grid is exact, so the evidence equals the JAX package's as before
+    (tests/test_torch_exact_variants.py), and the card test
+    ``test_laplace_fit_scan_captures_as_eager`` replays a captured step.
 """
 
 import jax
@@ -507,3 +528,92 @@ def test_fused_losses_map_under_vmap_as_jax(kind):
     twice = [torch.autograd.grad(torch.sum(got), list(raws.values()), retain_graph=True) for _ in range(2)]
     for a, b in zip(*twice):
         assert torch.equal(a, b)
+
+
+# -- 10. checkpoints of posteriors ------------------------------------------------------
+
+
+def _posterior_pair(kind, seed):
+    """A posterior of each package (``kind``: "gpr" or "gpr serving", or
+    "vfe serving" / "svgp serving") on data from ``seed``, n = 30, d = 2."""
+    from gptorch_tpu.models import VFE as JaxVFE
+    from gptorch_tpu_torch.models import VFE
+
+    x, y = _data(n=30, seed=seed)
+    z = x[::3] + 0.05
+    if kind.startswith("gpr"):
+        jm, tm = JaxGPR(x, y, jax_kernels.Rbf(D)), GPR(x, y, kernels.Rbf(D), device="cpu")
+    elif kind.startswith("vfe"):
+        jm = JaxVFE(x, y, jax_kernels.Rbf(D), inducing_points=z, likelihood=jax_likelihoods.Gaussian(0.1))
+        tm = VFE(x, y, kernels.Rbf(D), inducing_points=z, likelihood=likelihoods.Gaussian(0.1), device="cpu")
+    else:
+        jm = JaxSVGP(x, y, jax_kernels.Rbf(D), inducing_points=z, likelihood=jax_likelihoods.Gaussian(0.1))
+        tm = SVGP(x, y, kernels.Rbf(D), inducing_points=z, likelihood=likelihoods.Gaussian(0.1), device="cpu")
+        convert.load_trainable(tm, {k: np.asarray(v) for k, v in jax_get_trainable(jm).items()})
+    jp, tp = jm.posterior(), tm.posterior()
+    if kind.endswith("serving"):
+        jp, tp = jp.for_serving(), tp.for_serving()
+    return jp, tp
+
+
+@pytest.mark.parametrize("kind", ["gpr", "gpr serving", "vfe serving", "svgp serving"])
+def test_checkpoint_restores_posterior_factors_as_jax(tmp_path, kind):
+    """A posterior saved and loaded into the same kind of posterior of other
+    data predicts as the saved one in both packages (float64, 1e-12), and
+    the port's file holds its factors (the parent saved only the kernel's
+    and likelihood's parameters)."""
+    from gptorch_tpu.training import checkpoint as jax_checkpoint
+    from gptorch_tpu_torch.training import checkpoint
+
+    jp, tp = _posterior_pair(kind, seed=0)
+    jother, tother = _posterior_pair(kind, seed=1)
+    jax_checkpoint.save(str(tmp_path / "jax.npz"), jp)
+    checkpoint.save(str(tmp_path / "port.npz"), tp)
+    factors = {k for k, v in vars(tp).items() if isinstance(v, torch.Tensor)}
+    assert factors and factors <= set(np.load(tmp_path / "port.npz").files)
+    jloaded = jax_checkpoint.load(str(tmp_path / "jax.npz"), jother)
+    tloaded = checkpoint.load(str(tmp_path / "port.npz"), tother)
+    for j, t in ((jp, tp), (jloaded, tloaded)):
+        want, got = j.predict_f(XS), t.predict_f(XS)
+        for w, g in zip(want, got):
+            np.testing.assert_allclose(g, np.asarray(w), rtol=1e-9, atol=1e-12)
+    for w, g in zip(tp.predict_f(XS), tloaded.predict_f(XS)):
+        np.testing.assert_allclose(g, w, rtol=1e-12, atol=1e-12)
+
+
+# -- 11. the Laplace GP's loss reads no host data ----------------------------------------
+
+
+def test_laplace_loss_builds_no_tensor_from_host_data(monkeypatch):
+    """The Laplace evidence and its gradient run with torch.tensor and
+    torch.as_tensor made to raise on host data (a Python or numpy value),
+    and give the values they give without that guard (float64, bit for
+    bit); tests/test_torch_exact_variants.py holds them to the JAX
+    package's."""
+    from gptorch_tpu_torch.models import LaplaceGP
+
+    x, y = _data(n=30)
+    tm = LaplaceGP(x, (y > 0).astype(float), kernels.Rbf(D), likelihood=likelihoods.Bernoulli(), device="cpu")
+
+    def value_and_grad():
+        loss = tm.loss()
+        grads = torch.autograd.grad(loss, list(get_trainable(tm).values()))
+        return float(loss.detach()), [g.numpy() for g in grads]
+
+    want = value_and_grad()
+
+    def refusing(build):
+        def built(data, *args, **kwargs):
+            if not isinstance(data, torch.Tensor):
+                raise AssertionError(f"a tensor built from host data inside the loss: {data!r}")
+            return build(data, *args, **kwargs)
+
+        return built
+
+    monkeypatch.setattr(torch, "tensor", refusing(torch.tensor))
+    monkeypatch.setattr(torch, "as_tensor", refusing(torch.as_tensor))
+    got = value_and_grad()
+    monkeypatch.undo()
+    assert got[0] == want[0] and np.isfinite(got[0])
+    for g, w in zip(got[1], want[1]):
+        np.testing.assert_array_equal(g, w)
